@@ -1,0 +1,82 @@
+"""Frame construction: ORB extraction + undistortion + RGB-D depth seeding.
+
+Port of `orbslam2_tpu.pipeline.frame` (the RGB-D constructor).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from orbslam2_tpu.config import SlamConfig
+from orbslam2_tpu_torch.geometry import camera as cam_geo
+from orbslam2_tpu_torch.ops import orb, stereo
+
+
+class FrameData(NamedTuple):
+    """Fixed-shape per-frame record."""
+
+    frame_id: int
+    timestamp: float
+    xy: torch.Tensor        # [S, 2] undistorted keypoint coords
+    xy_raw: torch.Tensor    # [S, 2] raw (distorted) coords
+    ur: torch.Tensor        # [S] virtual right x (<0 = mono feature)
+    depth: torch.Tensor     # [S] depth (<0 = unknown)
+    octave: torch.Tensor    # [S] int32
+    angle: torch.Tensor     # [S]
+    desc: torch.Tensor      # [S, 8] int32 (uint32 bits)
+    valid: torch.Tensor     # [S] bool
+
+
+def rgbd_frame(
+    extractor: orb.OrbExtractor,
+    image: torch.Tensor,
+    depth_map: torch.Tensor,
+    frame_id: int,
+    timestamp: float,
+    K: cam_geo.Intrinsics,
+    inv_depth_factor: float,
+    has_distortion: bool,
+) -> FrameData:
+    """ORB extraction + undistortion + depth seeding of one RGB-D frame."""
+    feats = extractor(image)
+    und = cam_geo.undistort_pixels(feats.xy, K) if has_distortion else feats.xy
+    sm = stereo.compute_stereo_from_rgbd(
+        feats.xy, und, feats.valid, depth_map, inv_depth_factor, K.bf
+    )
+    return FrameData(
+        frame_id=frame_id,
+        timestamp=timestamp,
+        xy=und,
+        xy_raw=feats.xy,
+        ur=sm.u_right,
+        depth=sm.depth,
+        octave=feats.octave,
+        angle=feats.angle,
+        desc=feats.desc,
+        valid=feats.valid,
+    )
+
+
+class FrameBuilder:
+    """Builds FrameData from images; owns the config, the intrinsics and
+    the ORB extractor, all on `device`."""
+
+    def __init__(self, cfg: SlamConfig, device):
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.K = cam_geo.Intrinsics.from_config(cfg.camera, device=self.device)
+        self.extractor = orb.OrbExtractor(cfg.orb).to(self.device)
+        self._next_id = 0
+
+    def _fresh_id(self) -> int:
+        i = self._next_id
+        self._next_id += 1
+        return i
+
+    def rgbd(self, image: torch.Tensor, depth_map: torch.Tensor, timestamp: float = 0.0) -> FrameData:
+        return rgbd_frame(
+            self.extractor, image, depth_map, self._fresh_id(), timestamp, self.K,
+            1.0 / self.cfg.tracking.depth_map_factor, self.cfg.camera.has_distortion(),
+        )

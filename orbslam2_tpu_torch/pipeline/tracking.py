@@ -1,0 +1,457 @@
+"""Tracking: the per-frame front-end state machine.
+
+Port of `orbslam2_tpu.pipeline.tracking` for RGB-D tracking without
+mapping: the matching and local-map stages as functions on tensors, and
+the host-side `Tracker` (NOT_INITIALIZED -> OK <-> LOST) that sequences
+them. Relocalization and monocular initialization are not ported yet.
+"""
+
+from __future__ import annotations
+
+import enum
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from orbslam2_tpu.config import SlamConfig, Sensor
+from orbslam2_tpu_torch.geometry import camera as cam_geo
+from orbslam2_tpu_torch.geometry import se3
+from orbslam2_tpu_torch.ops import match
+from orbslam2_tpu_torch.pipeline.frame import FrameBuilder, FrameData
+from orbslam2_tpu_torch.slam_map import map_state as ms
+from orbslam2_tpu_torch.solvers import pose_opt
+
+
+class TrackState(enum.Enum):
+    NOT_INITIALIZED = 0
+    OK = 1
+    LOST = 2
+
+
+class TrackResult(NamedTuple):
+    Tcw: np.ndarray
+    state: TrackState
+    num_inliers: int
+    is_keyframe: bool
+
+
+def _i64(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.int64)
+
+
+# ---------------------------------------------------------------------------
+# stages
+# ---------------------------------------------------------------------------
+
+
+def motion_model_match(
+    Tcw_pred, last_xy, last_point_idx, last_octave, last_angle, last_desc,
+    mp_pos, mp_valid, frame: FrameData, K: cam_geo.Intrinsics, scale_factors,
+    radius_th, max_dist=match.TH_HIGH,
+):
+    """Project the last frame's bound points into the predicted pose and
+    match them (frame-to-frame SearchByProjection).
+
+    Returns (point_idx [S] int32 bindings for the current frame, pred_uv)."""
+    S = last_xy.shape[0]
+    pid = _i64(torch.clamp(last_point_idx, 0, mp_pos.shape[0] - 1))
+    has_point = (last_point_idx >= 0) & mp_valid[pid]
+    pc = se3.apply(Tcw_pred, mp_pos[pid])
+    uv = cam_geo.project(pc, K)
+    vis = has_point & (pc[:, 2] > 0.1)
+    radius = radius_th * scale_factors[_i64(torch.clamp(last_octave, 0, scale_factors.shape[0] - 1))]
+    res = match.search_frame_to_frame(
+        last_desc, uv, last_octave, vis, last_angle,
+        frame.desc, frame.xy, frame.octave, frame.valid, frame.angle,
+        radius, max_dist=max_dist,
+    )
+    assigned = res.assigned
+    cur_point = torch.where(
+        assigned >= 0, last_point_idx[_i64(torch.clamp(assigned, 0, S - 1))], -1
+    )
+    return cur_point, uv
+
+
+def reference_kf_match(kf_desc, kf_point_idx, kf_angle, kf_feat_valid, mp_valid, frame: FrameData):
+    """Match the frame's descriptors against a keyframe's bound features
+    (dense substitute for SearchByBoW, ratio 0.7)."""
+    pid = _i64(torch.clamp(kf_point_idx, 0, mp_valid.shape[0] - 1))
+    valid_a = kf_feat_valid & (kf_point_idx >= 0) & mp_valid[pid]
+    res = match.search_brute(
+        kf_desc, valid_a, kf_angle,
+        frame.desc, frame.valid, frame.angle,
+        max_dist=match.TH_LOW, ratio=0.7, check_rotation=True,
+    )
+    assigned = res.assigned
+    return torch.where(
+        assigned >= 0, kf_point_idx[_i64(torch.clamp(assigned, 0, kf_desc.shape[0] - 1))], -1
+    )
+
+
+def _top_k(values: torch.Tensor, k: int):
+    """`lax.top_k`: the k largest values, ties in ascending index order."""
+    vals, idx = torch.sort(values, descending=True, stable=True)
+    return vals[:k], idx[:k]
+
+
+def gather_local_map(
+    state: ms.MapState,
+    cur_point_idx,
+    max_local_kfs: int = 80,
+    max_local_points: int = 4096,
+):
+    """Local keyframes = observers of the current points + top covisibles;
+    local points = points bound in those keyframes, most relevant
+    keyframe's points first, newest slot on ties (ORB-SLAM2
+    UpdateLocalKeyFrames/UpdateLocalPoints).
+
+    Returns (local_kf_ids [L], local_kf_mask [L] bool,
+             local_point_ids [M], local_point_mask [M] bool, ref_kf)."""
+    P = state.capacity_mp
+    K = state.capacity_kf
+    dev = cur_point_idx.device
+    max_local_kfs = min(max_local_kfs, K)
+    pid = _i64(torch.clamp(cur_point_idx, 0, P - 1))
+    bound = (cur_point_idx >= 0) & state.mp_valid[pid]
+    obs_kf = state.mp_obs_kf[pid]                     # [S, O]
+    obs_ok = bound[:, None] & (obs_kf >= 0)
+    votes = torch.zeros(K + 1, dtype=torch.int32, device=dev).index_add(
+        0, _i64(torch.where(obs_ok, obs_kf, K)).reshape(-1),
+        torch.ones(obs_kf.numel(), dtype=torch.int32, device=dev),
+    )[:K]
+    votes = torch.where(state.kf_valid, votes, 0)
+    ref_kf = torch.argmax(votes).to(torch.int32)
+    covis_boost = torch.amax(state.covis * (votes > 0)[:, None].to(torch.int32), dim=0)
+    score = votes * 1000 + torch.where(votes > 0, 0, covis_boost)
+    score = torch.where(state.kf_valid, score, -1)
+    _, local_kfs = _top_k(score, max_local_kfs)
+    local_kf_mask = score[local_kfs] > 0
+    L = local_kfs.shape[0]
+    ids = state.kf_point_idx[local_kfs]               # [L, S]
+    ids_w = _i64(torch.where(local_kf_mask[:, None] & (ids >= 0), ids, P))
+    rank_l = torch.arange(L, dtype=torch.int32, device=dev)[:, None].expand(ids_w.shape)
+    pri = torch.full((P + 1,), L, dtype=torch.int32, device=dev).scatter_reduce(
+        0, ids_w.reshape(-1), rank_l.reshape(-1), "amin", include_self=True
+    )[:P]
+    flagged = (pri < L) & state.mp_valid
+    score_pt = torch.where(
+        flagged, (L - pri) * (P + 1) + torch.arange(P, dtype=torch.int32, device=dev), -1
+    )
+    top_score, local_points = _top_k(score_pt, max_local_points)
+    local_point_mask = top_score >= 0
+    return local_kfs, local_kf_mask, local_points, local_point_mask, ref_kf
+
+
+def search_local_points(
+    state: ms.MapState,
+    local_points,
+    local_point_mask,
+    Tcw,
+    cur_point_idx,
+    frame: FrameData,
+    K: cam_geo.Intrinsics,
+    scale_factors,
+    image_bounds,
+    radius_mult,
+    num_levels: int = 8,
+    max_dist=match.TH_HIGH,
+):
+    """Frustum-check local points, predict their scale and project-match
+    them into the frame's unbound features (ORB-SLAM2 isInFrustum +
+    SearchLocalPoints).
+
+    Returns (merged point_idx bindings [S], visible [M] mask)."""
+    pw = state.mp_pos[local_points]
+    pc = se3.apply(Tcw, pw)
+    uv = cam_geo.project(pc, K)
+    z_ok = pc[:, 2] > 0.1
+    xmin, xmax, ymin, ymax = image_bounds
+    in_img = (uv[:, 0] >= xmin) & (uv[:, 0] < xmax) & (uv[:, 1] >= ymin) & (uv[:, 1] < ymax)
+    rays = pw - se3.camera_center(Tcw)
+    dist = torch.linalg.norm(rays, dim=-1)
+    dist_ok = (dist >= state.mp_min_dist[local_points] * 0.8) & (
+        dist <= state.mp_max_dist[local_points] * 1.2
+    )
+    viewcos = torch.sum(rays * state.mp_normal[local_points], dim=-1) / torch.clamp(dist, min=1e-9)
+    visible = local_point_mask & z_ok & in_img & dist_ok & (viewcos > 0.5)
+
+    # already-bound points are not re-matched
+    P = state.capacity_mp
+    bound_flag = torch.zeros(P + 1, dtype=torch.bool, device=pw.device)
+    bound_flag[_i64(torch.where(cur_point_idx >= 0, cur_point_idx, P))] = True
+    visible = visible & ~bound_flag[local_points]
+
+    # predicted octave from distance (MapPoint::PredictScale)
+    ratio = state.mp_max_dist[local_points] / torch.clamp(dist, min=1e-9)
+    log_scale = torch.log(scale_factors[1])
+    pred_octave = torch.clamp(
+        torch.ceil(torch.log(torch.clamp(ratio, min=1e-9)) / log_scale).to(torch.int32),
+        0, num_levels - 1,
+    )
+    r = torch.where(viewcos > 0.998, 2.5, 4.0) * radius_mult
+    radius = r * scale_factors[_i64(pred_octave)]
+
+    free_feat = frame.valid & (cur_point_idx < 0)
+    res = match.search_by_projection(
+        state.mp_desc[local_points], uv, pred_octave, visible,
+        frame.desc, frame.xy, frame.octave, free_feat,
+        radius, max_dist=max_dist, ratio=0.8,
+    )
+    assigned = res.assigned
+    new_bind = torch.where(
+        assigned >= 0,
+        local_points[_i64(torch.clamp(assigned, 0, local_points.shape[0] - 1))],
+        -1,
+    ).to(torch.int32)
+    return torch.where(cur_point_idx >= 0, cur_point_idx, new_bind), visible
+
+
+def build_pose_observations(point_idx, frame: FrameData, mp_pos, mp_valid, inv_sigma2_per_octave):
+    pid = _i64(torch.clamp(point_idx, 0, mp_pos.shape[0] - 1))
+    return pose_opt.PoseObservations(
+        pw=mp_pos[pid],
+        uv=frame.xy,
+        ur=frame.ur,
+        inv_sigma2=inv_sigma2_per_octave[
+            _i64(torch.clamp(frame.octave, 0, inv_sigma2_per_octave.shape[0] - 1))
+        ],
+        mask=(point_idx >= 0) & mp_valid[pid] & frame.valid,
+    )
+
+
+def update_seen_counters(state: ms.MapState, visible_pts, visible_mask, found_pts, found_mask) -> None:
+    """mnVisible / mnFound bookkeeping, in place. Unselected entries go to
+    a scratch slot P of a P+1 buffer that is then sliced off."""
+    P = state.capacity_mp
+    for counter, pts, sel in (
+        (state.mp_visible, visible_pts, visible_mask),
+        (state.mp_found, found_pts, found_mask),
+    ):
+        buf = torch.cat([counter, counter.new_zeros(1)])
+        buf.index_add_(0, _i64(torch.where(sel, pts, P)), torch.ones_like(buf[: sel.shape[0]]))
+        counter.copy_(buf[:P])
+
+
+# ---------------------------------------------------------------------------
+# host-side tracker
+# ---------------------------------------------------------------------------
+
+
+class Tracker:
+    """Host orchestration of the per-frame pipeline."""
+
+    def __init__(self, cfg: SlamConfig, builder: FrameBuilder, state: ms.MapState):
+        self.cfg = cfg
+        self.builder = builder
+        self.device = builder.device
+        self.map = state
+        self.K = builder.K
+        nl = cfg.orb.num_levels
+        sf = cfg.orb.scale_factor
+        self.scale_factors = torch.tensor([sf**i for i in range(nl)], dtype=torch.float32,
+                                          device=self.device)
+        self.inv_sigma2 = torch.tensor([1.0 / sf ** (2 * i) for i in range(nl)],
+                                       dtype=torch.float32, device=self.device)
+        self.bounds = cam_geo.compute_image_bounds(cfg.camera)
+        self.state = TrackState.NOT_INITIALIZED
+        self.velocity: Optional[torch.Tensor] = None
+        self.last_Tcw: Optional[torch.Tensor] = None
+        self.last_frame: Optional[FrameData] = None
+        self.last_point_idx: Optional[torch.Tensor] = None
+        self.ref_kf: int = -1
+        self.frames_since_kf = 0
+        self.n_keyframes = 0
+        self._params = None
+        self._ref_pose_np = np.eye(4)
+        # set when the policy requests a keyframe; consumed by System
+        self.kf_request = None
+        self.new_keyframe_ids: list[int] = []
+        # per-frame trajectory log: (timestamp, Tcr, ref_kf, tracked)
+        self.trajectory: list[tuple[float, np.ndarray, int, bool]] = []
+
+    # -- initialization ----------------------------------------------------
+
+    def _stereo_initialize(self, frame: FrameData) -> bool:
+        """RGB-D initialization: gate on the feature and depth-seed counts,
+        insert the first keyframe at the origin and create a point for
+        every feature with depth."""
+        n_feat = int(torch.sum(frame.valid))
+        n_depth = int(torch.sum(frame.valid & (frame.depth > 0)))
+        if n_feat < self.cfg.orb.num_features // 2 or n_depth < 100:
+            return False
+        Tcw = se3.identity(device=self.device)
+        S = frame.xy.shape[0]
+        unbound = torch.full((S,), -1, dtype=torch.int32, device=self.device)
+        kf0 = ms.add_keyframe(
+            self.map, frame.frame_id, Tcw,
+            frame.xy, frame.ur, frame.depth, frame.octave, frame.angle,
+            frame.desc, frame.valid, unbound,
+        )
+        self._create_depth_points(self.map, kf0, frame, Tcw, unbound, all_depths=True)
+        self.ref_kf = kf0
+        self.last_point_idx = self.map.kf_point_idx[kf0].clone()
+        self.new_keyframe_ids.append(kf0)
+        self.n_keyframes = 1
+        self._ref_pose_np = np.eye(4)
+        return True
+
+    def _create_depth_points(self, st: ms.MapState, kf_id: int, frame: FrameData, Tcw,
+                             existing_bind, all_depths: bool = False):
+        """Create map points for unbound features with valid depth: every
+        one at initialization, else the close ones (depth < ThDepth *
+        baseline) plus the 100 nearest."""
+        th = self.cfg.tracking.th_depth * self.cfg.camera.baseline
+        has_depth = frame.valid & (frame.depth > 0) & (existing_bind < 0)
+        if all_depths:
+            create = has_depth
+        else:
+            depth_rank = torch.sum(
+                (frame.depth[None, :] < frame.depth[:, None]) & has_depth[None, :], dim=1
+            )
+            create = has_depth & ((frame.depth < th) | (depth_rank < 100))
+        pc = cam_geo.backproject(frame.xy, frame.depth, self.K)
+        pw = se3.apply(se3.inverse(Tcw), pc)
+        rays = pw - se3.camera_center(Tcw)
+        dist = torch.linalg.norm(rays, dim=-1)
+        normal = rays / torch.clamp(dist[:, None], min=1e-9)
+        scale = self.scale_factors[_i64(torch.clamp(frame.octave, 0, self.scale_factors.shape[0] - 1))]
+        max_d = dist * scale
+        min_d = max_d / float(self.cfg.orb.scale_factor ** (self.cfg.orb.num_levels - 1))
+        S = frame.xy.shape[0]
+        return ms.add_points(
+            st, pw, create, kf_id, torch.arange(S, dtype=torch.int32, device=self.device),
+            frame.desc, normal, min_d, max_d, frame.ur,
+        )
+
+    # -- main entry --------------------------------------------------------
+
+    def process(self, frame: FrameData) -> TrackResult:
+        """One RGB-D frame through the state machine (the synchronous path;
+        steady-state frames go through System's dispatch)."""
+        if self.state == TrackState.LOST:
+            # relocalization is not ported: without a keyframe database the
+            # reference's attempt fails the same way
+            self._log_pose(frame, False)
+            Tcw = self.last_Tcw.cpu().numpy() if self.last_Tcw is not None else np.eye(4)
+            return TrackResult(Tcw, self.state, 0, False)
+        if self.state == TrackState.NOT_INITIALIZED:
+            if self._stereo_initialize(frame):
+                self.state = TrackState.OK
+                self.last_Tcw = se3.identity(device=self.device)
+                self.last_frame = frame
+                self.frames_since_kf = 0
+                self._log_pose(frame, True)
+                return TrackResult(np.eye(4), self.state, 0, True)
+            self._log_pose(frame, False)
+            return TrackResult(np.eye(4), TrackState.NOT_INITIALIZED, 0, False)
+
+        from orbslam2_tpu_torch.pipeline import fused
+
+        self._ensure_params()
+        velocity = self.velocity if self.velocity is not None else torch.eye(4, device=self.device)
+        out = fused.track_step(
+            self.map, frame,
+            self.last_frame.xy, self.last_point_idx,
+            self.last_frame.octave, self.last_frame.angle, self.last_frame.desc,
+            self.last_Tcw, velocity, self.velocity is not None,
+            self.ref_kf, self.K, self._params,
+            max_local_kfs=self.cfg.map.max_local_keyframes,
+            max_local_points=self.cfg.map.max_local_points,
+            num_levels=self.cfg.orb.num_levels,
+        )
+        # one host sync for everything the policy needs
+        Tcw_np = out.Tcw.cpu().numpy()
+        ok, n_inliers, ref_tracked, close_t, close_f = torch.stack(
+            [out.ok.to(torch.int64), out.n_inliers.to(torch.int64), out.ref_tracked.to(torch.int64),
+             out.close_tracked.to(torch.int64), out.close_free.to(torch.int64)]
+        ).tolist()
+        if not ok or n_inliers < self.cfg.tracking.min_inliers_local:
+            self.state = TrackState.LOST
+            self.velocity = None
+            self._log_pose(frame, False)
+            return TrackResult(Tcw_np, self.state, n_inliers, False)
+
+        self.state = TrackState.OK
+        self.velocity = out.Tcw @ se3.inverse(self.last_Tcw)
+        is_kf = self._need_new_keyframe(n_inliers, ref_tracked, close_t, close_f)
+        if is_kf:
+            self.kf_request = (frame, out.Tcw, out.point_idx)
+            self.frames_since_kf = 0
+        else:
+            self.frames_since_kf += 1
+        self.last_Tcw = out.Tcw
+        self.last_frame = frame
+        self.last_point_idx = out.point_idx
+        self._log_pose(frame, True, Tcw_np)
+        return TrackResult(Tcw_np, self.state, n_inliers, is_kf)
+
+    def _ensure_params(self):
+        if self._params is not None:
+            return
+        from orbslam2_tpu_torch.pipeline import fused
+
+        radius_th = 7.0 if self.cfg.sensor != Sensor.MONOCULAR else 15.0
+        if self.cfg.tracking.search_radius > 0:
+            radius_th = float(self.cfg.tracking.search_radius)
+        self._params = fused.TrackParams(
+            scale_factors=self.scale_factors,
+            inv_sigma2=self.inv_sigma2,
+            bounds=self.bounds,
+            radius_th=radius_th,
+            min_track=self.cfg.tracking.min_inliers_track,
+            close_depth=self.cfg.tracking.th_depth * self.cfg.camera.baseline,
+            min_track_local=self.cfg.tracking.min_inliers_local,
+            match_max_dist=self.cfg.tracking.match_max_dist,
+        )
+
+    # -- keyframe policy ---------------------------------------------------
+
+    def _need_new_keyframe(self, n_inliers, ref_tracked, close_tracked, close_free) -> bool:
+        """Condensed ORB-SLAM2 NeedNewKeyFrame, fed by scalars computed in
+        the track step."""
+        min_gap = self.cfg.tracking.kf_min_gap
+        max_gap = max(int(self.cfg.camera.fps) // 2, 5)
+        ratio = 0.75 if self.cfg.sensor != Sensor.MONOCULAR else 0.9
+        if self.n_keyframes <= 2:
+            ratio = 0.4
+        need_ratio = n_inliers < ratio * max(ref_tracked, 1)
+        close_cond = (
+            self.cfg.sensor != Sensor.MONOCULAR and close_tracked < 100 and close_free > 70
+        )
+        c1 = self.frames_since_kf >= max_gap
+        c2 = (need_ratio or close_cond) and self.frames_since_kf >= min_gap
+        return (c1 or c2) and n_inliers > 15
+
+    def on_new_keyframe(self, kf_id: int, ref_pose_np=None):
+        """Bookkeeping after a keyframe was inserted."""
+        self.ref_kf = kf_id
+        self.n_keyframes += 1
+        self.new_keyframe_ids.append(kf_id)
+        if ref_pose_np is not None:
+            self._ref_pose_np = np.asarray(ref_pose_np)
+        elif self.ref_kf >= 0:
+            self._ref_pose_np = self.map.kf_Tcw[self.ref_kf].cpu().numpy()
+
+    # -- logging -----------------------------------------------------------
+
+    def _log_pose(self, frame: FrameData, tracked: bool, Tcw=None):
+        """Log the pose relative to the current reference keyframe
+        (Tcr = Tcw * Trw^-1), so the trajectory follows later corrections
+        of keyframe poses. Host math against the cached reference pose."""
+        if Tcw is not None:
+            T = np.asarray(Tcw)
+        elif self.last_Tcw is not None:
+            T = self.last_Tcw.cpu().numpy()
+        else:
+            T = np.eye(4)
+        if not np.isfinite(T).all():
+            T = self.trajectory[-1][1] @ self._ref_pose_np if (
+                self.trajectory and self.trajectory[-1][2] == self.ref_kf
+            ) else np.eye(4)
+            tracked = False
+        if self.ref_kf >= 0 and np.isfinite(self._ref_pose_np).all():
+            Tcr = T @ np.linalg.inv(self._ref_pose_np)
+        else:
+            Tcr = T
+        self.trajectory.append((frame.timestamp, Tcr, self.ref_kf, tracked))
