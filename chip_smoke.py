@@ -10,17 +10,27 @@ Phases, each printing its own lines; any failed check exits non-zero:
    exact, and both timed with CUDA events;
 4. K2 (pose Gauss-Newton) on the card against its plain version, Tcw to
    atol 1e-4 and equal inlier sets, and both timed;
-5. the main path: `System.track_rgbd` over 40 frames of the synthetic
+5. the tracking path: `System.track_rgbd` over 40 frames of the synthetic
    textured-room dolly at the 640x480 / 1000-feature bench configuration,
    mapping and loop closing off. Every frame must be tracked with ATE
    < 0.01 m, and the kernel launch counts show the path went through K1
    and K2 (at least 3 launches each per tracked frame);
-6. the same session at a small size on the card and on the CPU (plain
-   versions), per-frame poses within 5 mm and 0.2 degrees.
+6. that session at a small size on the card and on the CPU (plain
+   versions), per-frame poses within 5 mm and 0.2 degrees;
+7. the mapping path: the same entry point over 72 frames at bench.py's
+   configuration with local mapping on (loop closing off). All 72 frames
+   tracked, ATE < 0.01 m, 8-24 keyframes, more than 2000 points, local BA
+   on at least 8 keyframes and K1 launched inside every keyframe step;
+   K1 is then timed at the union-fuse shape the keyframe steps launched;
+8. the mapping session at a small size (320x240, 18 frames) on the card
+   and on the CPU: the same keyframes (frames 0, 6 and 17) and per-frame
+   poses within 5 mm and 0.2 degrees.
 
-The last two lines are a JSON object of the kernels' launch counts,
-errors and times, and the JSON result line. Exits non-zero, printing no
-result, when no CUDA device is available.
+The launch counts are set to 0 just before each path is driven and read
+just after; the kernels line sums the two paths. The last two lines are
+a JSON object of the kernels' launch counts, errors and times, and the
+JSON result line. Exits non-zero, printing no result, when no CUDA device
+is available.
 """
 
 from __future__ import annotations
@@ -36,9 +46,15 @@ import torch
 
 TOL_K2_TCW = 1e-4         # float32 GN with another summation order than torch's
 ATE_LIMIT_M = 0.01        # the reference on the CPU gives 0.0041 m here
-N_FRAMES = 40             # the first keyframe's points stay in view (72 lose it)
-TIMED_FROM = 8            # frames/s over frames 8..39 (0..7 warm up)
+N_FRAMES = 40             # without mapping the first keyframe's points stay in view to ~70
+TIMED_FROM = 8            # frames/s from frame 8 on (0..7 warm up)
 SMALL_DT_M, SMALL_DEG = 5e-3, 0.2
+MAP_FRAMES = 72           # bench.py's forward segment
+MAP_ATE_LIMIT_M = 0.01    # the reference on the CPU gives 0.00312 m here
+MAP_KF_RANGE = (8, 24)    # the reference makes 14 keyframes
+MAP_MIN_POINTS = 2000     # the reference ends with 4712 points
+MAP_MIN_BA = 8
+SMALL_MAP_FRAMES, SMALL_MAP_KFS = 18, [0, 6, 17]
 
 
 def fail(msg: str) -> None:
@@ -168,8 +184,10 @@ def check_k2(device) -> dict:
 
 
 def bench_config(width: int = 640, height: int = 480, features: int = 1000,
-                 slots: int = 1024, points: int = 16384, local_points: int = 4096):
-    """bench.py's camera, ORB and map sizes, synchronous, tracking only."""
+                 slots: int = 1024, points: int = 16384, local_points: int = 4096,
+                 keyframes: int = 96, ba_points: int = 4096, ba_local: int = 24,
+                 ba_fixed: int = 16):
+    """bench.py's camera, ORB, map and local-BA sizes, synchronous."""
     from orbslam2_tpu_torch import config as c
 
     s = width / 640.0
@@ -179,12 +197,22 @@ def bench_config(width: int = 640, height: int = 480, features: int = 1000,
                               cy=height / 2 - 0.5, bf=48.0 * s, fps=30.0,
                               width=width, height=height),
         orb=c.OrbConfig(num_features=features, feature_slots=slots),
-        map=c.MapConfig(max_keyframes=96, max_points=points, max_local_points=local_points),
+        map=c.MapConfig(max_keyframes=keyframes, max_points=points,
+                        max_local_points=local_points),
         tracking=c.TrackingConfig(th_depth=40.0, pipeline_depth=0),
+        solver=c.SolverConfig(ba_max_points=ba_points, local_ba_iters_first=3,
+                              local_ba_iters_second=4, ba_max_local_kfs=ba_local,
+                              ba_max_fixed_kfs=ba_fixed),
     )
 
 
-def run_session(cfg, n_frames: int, device):
+def small_config():
+    """The 320x240 / 300-feature configuration of the CPU tests."""
+    return bench_config(width=320, height=240, features=300, slots=320, points=8192,
+                        local_points=2048, keyframes=32, ba_points=2048, ba_local=16)
+
+
+def run_session(cfg, n_frames: int, device, mapping: bool = False):
     """Drive System.track_rgbd over the forward dolly with the frames staged
     on `device` first. Returns (slam, seq, per-frame seconds); each frame
     ends in a host read of its pose, so its time is complete."""
@@ -195,7 +223,7 @@ def run_session(cfg, n_frames: int, device):
     frames = [seq.frame(i) for i in range(n_frames)]
     imgs = torch.from_numpy(np.stack([f[0] for f in frames])).to(device)
     deps = torch.from_numpy(np.stack([f[1] for f in frames])).to(device)
-    slam = System(cfg, device=device, enable_mapping=False, enable_loop_closing=False)
+    slam = System(cfg, device=device, enable_mapping=mapping, enable_loop_closing=False)
     secs = []
     for i in range(n_frames):
         if device.type == "cuda":
@@ -242,20 +270,151 @@ def check_main_path(device) -> dict:
     return {"launches": launches, "ate_m": ate, "fps": fps}
 
 
+def pose_gaps(pa, pb):
+    """Per-frame translation (m) and rotation (deg) between two pose lists."""
+    dt = np.linalg.norm(pa[:, :3, 3] - pb[:, :3, 3], axis=1)
+    R = np.einsum("nji,njk->nik", pa[:, :3, :3], pb[:, :3, :3])
+    deg = np.degrees(np.arccos(np.clip((np.trace(R, axis1=1, axis2=2) - 1) / 2, -1, 1)))
+    return dt, deg
+
+
 def check_small_cpu_agreement(device) -> None:
-    cfg = bench_config(width=320, height=240, features=300, slots=320, points=8192,
-                       local_points=2048)
+    cfg = small_config()
     gpu, _, _ = run_session(cfg, 6, device)
     cpu, _, _ = run_session(cfg, 6, torch.device("cpu"))
     _, pg, tg = gpu.frame_poses()
     _, pc, tc = cpu.frame_poses()
-    dt = np.linalg.norm(pg[:, :3, 3] - pc[:, :3, 3], axis=1)
-    R = np.einsum("nji,njk->nik", pg[:, :3, :3], pc[:, :3, :3])
-    deg = np.degrees(np.arccos(np.clip((np.trace(R, axis1=1, axis2=2) - 1) / 2, -1, 1)))
+    dt, deg = pose_gaps(pg, pc)
     print(f"small session, card vs CPU: tracked {int(tg.sum())}/{int(tc.sum())} of 6, "
           f"max dt {dt.max():.3e} m, max rot {deg.max():.3e} deg", flush=True)
     if not (tg.all() and tc.all() and dt.max() < SMALL_DT_M and deg.max() < SMALL_DEG):
         fail("the card and the CPU disagree on the small session")
+
+
+class KeyframeProbe:
+    """Wraps the keyframe stages of `fused` / `local_mapping` for one
+    session: K1 launches inside each keyframe step, the local-BA runs and
+    the union-fuse row counts. Only counts the wrappers already keep are
+    read; nothing is launched here."""
+
+    def __init__(self):
+        from orbslam2_tpu_torch import kernels
+        from orbslam2_tpu_torch.pipeline import fused
+        from orbslam2_tpu_torch.pipeline import local_mapping as lm
+
+        self.k1_per_step, self.ba_runs, self.union_rows = [], 0, []
+        self._saved = [(fused, "keyframe_full_step"), (fused, "local_ba_step"),
+                       (lm, "fuse_points_into_kf")]
+        self._orig = [getattr(m, n) for m, n in self._saved]
+        kf_step, ba_step, fuse_into = self._orig
+
+        def keyframe_full_step(*a, **k):
+            before = kernels.launch_counts["hamming"]
+            out = kf_step(*a, **k)
+            self.k1_per_step.append(kernels.launch_counts["hamming"] - before)
+            return out
+
+        def local_ba_step(*a, **k):
+            self.ba_runs += 1
+            return ba_step(*a, **k)
+
+        def fuse_points_into_kf(state, point_ids, *a, **k):
+            self.union_rows.append(int(point_ids.shape[0]))
+            return fuse_into(state, point_ids, *a, **k)
+
+        for (m, n), f in zip(self._saved, (keyframe_full_step, local_ba_step,
+                                           fuse_points_into_kf)):
+            setattr(m, n, f)
+
+    def close(self):
+        for (m, n), f in zip(self._saved, self._orig):
+            setattr(m, n, f)
+
+
+def check_mapping_path(device) -> dict:
+    from orbslam2_tpu_torch import evaluation, kernels
+
+    cfg = bench_config()
+    probe = KeyframeProbe()
+    try:
+        kernels.launch_counts.update(hamming=0, pose_gn=0)
+        slam, seq, secs = run_session(cfg, MAP_FRAMES, device, mapping=True)
+        launches = dict(kernels.launch_counts)
+    finally:
+        probe.close()
+    ts, poses, tracked = slam.frame_poses()
+    if poses.shape != (MAP_FRAMES, 4, 4) or not np.isfinite(poses).all():
+        fail(f"mapping path: poses of shape {poses.shape}, finite {np.isfinite(poses).all()}")
+    ate = evaluation.ate_rmse(poses, seq.poses, align=True)
+    n_tracked = int(tracked.sum())
+    kf_frames = [i for i, r in enumerate(slam.results) if r.is_keyframe]
+    ms_all = 1000 * np.asarray(secs)
+    steady = np.arange(TIMED_FROM, MAP_FRAMES)
+    is_kf = np.isin(steady, kf_frames)
+    fps = len(steady) / (ms_all[steady].sum() / 1000)
+    print(f"mapping path: {n_tracked}/{MAP_FRAMES} frames tracked, ATE {ate:.5f} m, "
+          f"{slam.num_points()} points, {len(kf_frames)} keyframes made at frames {kf_frames}, "
+          f"{slam.num_keyframes()} live", flush=True)
+    print(f"mapping path: local BA on {probe.ba_runs} keyframes; K1 launches per keyframe step "
+          f"{probe.k1_per_step}; union-fuse rows {probe.union_rows}", flush=True)
+    print(f"mapping path: {fps:.2f} frames/s over frames {TIMED_FROM}-{MAP_FRAMES - 1}; "
+          f"ms/frame median {np.median(ms_all[steady]):.2f}; keyframe frames median "
+          f"{np.median(ms_all[steady][is_kf]):.2f} ({int(is_kf.sum())}), other frames median "
+          f"{np.median(ms_all[steady][~is_kf]):.2f} ({int((~is_kf).sum())})", flush=True)
+    print(f"mapping path: ms per frame {np.round(ms_all, 2).tolist()}", flush=True)
+    print(f"mapping path: launches {launches} over {MAP_FRAMES - 1} frames after initialization",
+          flush=True)
+    if n_tracked != MAP_FRAMES:
+        fail(f"mapping path lost {MAP_FRAMES - n_tracked} frames")
+    if not ate < MAP_ATE_LIMIT_M:
+        fail(f"mapping path ATE {ate} >= {MAP_ATE_LIMIT_M}")
+    if not MAP_KF_RANGE[0] <= len(kf_frames) <= MAP_KF_RANGE[1]:
+        fail(f"mapping path made {len(kf_frames)} keyframes, outside {MAP_KF_RANGE}")
+    if slam.num_points() <= MAP_MIN_POINTS:
+        fail(f"mapping path ended with {slam.num_points()} points")
+    if probe.ba_runs < MAP_MIN_BA:
+        fail(f"local BA ran on {probe.ba_runs} keyframes")
+    if len(probe.k1_per_step) != len(kf_frames) - 1 or min(probe.k1_per_step) < 1:
+        fail(f"K1 launches per keyframe step {probe.k1_per_step}")
+    for name, n in launches.items():
+        if n < 3 * (MAP_FRAMES - 1):
+            fail(f"mapping path launched {name} {n} times, fewer than 3 per frame")
+    return {"launches": launches, "ate_m": ate, "fps": fps,
+            "union_rows": int(np.median(probe.union_rows)), "slots": cfg.orb.feature_slots}
+
+
+def time_union_fuse_k1(device, rows: int, slots: int) -> dict:
+    """K1 against its plain version at the union-fuse shape the keyframe
+    steps launched (the median row count): exact, and both timed."""
+    from orbslam2_tpu_torch.ops import cuda_hamming, hamming
+
+    rng = np.random.default_rng(1)
+    a, b = rand_desc(rng, rows, device), rand_desc(rng, slots, device)
+    got = cuda_hamming.distance_matrix_cuda(a, b)
+    if not torch.equal(got, hamming.distance_matrix(a, b)):
+        fail(f"K1 {rows}x{slots} differs from the plain version")
+    k = time_ms(lambda: cuda_hamming.distance_matrix_cuda(a, b))
+    p = time_ms(lambda: hamming.distance_matrix(a, b))
+    print(f"K1 {rows}x{slots} (union fuse): exact; kernel {k:.4f} ms, plain {p:.4f} ms "
+          f"(median of 20)", flush=True)
+    return {"shape_union_fuse": f"{rows}x{slots}", "ms_union_fuse": k, "plain_ms_union_fuse": p}
+
+
+def check_small_mapping_cpu_agreement(device) -> None:
+    cfg = small_config()
+    gpu, _, _ = run_session(cfg, SMALL_MAP_FRAMES, device, mapping=True)
+    cpu, _, _ = run_session(cfg, SMALL_MAP_FRAMES, torch.device("cpu"), mapping=True)
+    kg = [i for i, r in enumerate(gpu.results) if r.is_keyframe]
+    kc = [i for i, r in enumerate(cpu.results) if r.is_keyframe]
+    _, pg, tg = gpu.frame_poses()
+    _, pc, tc = cpu.frame_poses()
+    dt, deg = pose_gaps(pg, pc)
+    print(f"small mapping session, card vs CPU: keyframes {kg} / {kc}, points "
+          f"{gpu.num_points()} / {cpu.num_points()}, tracked {int(tg.sum())}/{int(tc.sum())} of "
+          f"{SMALL_MAP_FRAMES}, max dt {dt.max():.3e} m, max rot {deg.max():.3e} deg", flush=True)
+    if not (kg == kc == SMALL_MAP_KFS and tg.all() and tc.all()
+            and dt.max() < SMALL_DT_M and deg.max() < SMALL_DEG):
+        fail("the card and the CPU disagree on the small mapping session")
 
 
 def main() -> None:
@@ -281,11 +440,14 @@ def main() -> None:
     k2 = check_k2(device)
     main_path = check_main_path(device)
     check_small_cpu_agreement(device)
+    mapping = check_mapping_path(device)
+    k1.update(time_union_fuse_k1(device, mapping["union_rows"], mapping["slots"]))
+    check_small_mapping_cpu_agreement(device)
 
     if "jax" in sys.modules:
         fail("jax was imported")
-    k1["launches"] = main_path["launches"]["hamming"]
-    k2["launches"] = main_path["launches"]["pose_gn"]
+    k1["launches"] = main_path["launches"]["hamming"] + mapping["launches"]["hamming"]
+    k2["launches"] = main_path["launches"]["pose_gn"] + mapping["launches"]["pose_gn"]
     print(card, flush=True)
     print(json.dumps({"kernels": [k1, k2]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

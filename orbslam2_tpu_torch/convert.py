@@ -19,6 +19,7 @@ from orbslam2_tpu_torch.geometry.camera import Intrinsics
 from orbslam2_tpu_torch.pipeline.fused import TrackParams
 from orbslam2_tpu_torch.pipeline.frame import FrameData
 from orbslam2_tpu_torch.slam_map.map_state import MapState
+from orbslam2_tpu_torch.solvers.ba import BAProblem, BAResult
 from orbslam2_tpu_torch.solvers.pose_opt import PoseObservations
 
 _DESC_FIELDS = ("desc", "kf_desc", "mp_desc")
@@ -67,6 +68,14 @@ def intrinsics_from_numpy(fields: Mapping, device) -> Intrinsics:
 def pose_observations_from_numpy(fields: Mapping, device) -> PoseObservations:
     return PoseObservations(**{name: to_tensor(fields[name], device)
                                for name in PoseObservations._fields})
+
+
+def ba_problem_from_numpy(fields: Mapping, device) -> BAProblem:
+    return BAProblem(**{name: to_tensor(fields[name], device) for name in BAProblem._fields})
+
+
+def ba_result_to_numpy(result: BAResult) -> dict[str, np.ndarray]:
+    return {name: to_numpy(getattr(result, name)) for name in BAResult._fields}
 
 
 def track_params_from_numpy(fields: Mapping, device) -> TrackParams:

@@ -138,7 +138,10 @@ def make(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     R = R.expand(batch + (3, 3))
     t = t.expand(batch + (3,))
     top = torch.cat([R, t[..., None]], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype, device=R.device)
+    # built on the device: a row copied from the host would wait for the
+    # card's queue on every call
+    bottom = torch.zeros(4, dtype=R.dtype, device=R.device)
+    bottom[3] = 1.0
     return torch.cat([top, bottom.expand(batch + (1, 4))], dim=-2)
 
 

@@ -1,8 +1,8 @@
 """Descriptor matching: dense gated Hamming matching with ratio tests,
 rotation-consistency filtering and projection-guided search.
 
-Port of the parts of `orbslam2_tpu.ops.match` the RGB-D tracking path
-calls. Every matcher computes the full [A, B] distance matrix (kernel K1)
+Port of the parts of `orbslam2_tpu.ops.match` the RGB-D tracking and
+mapping paths call. Every matcher computes the full [A, B] distance matrix (kernel K1)
 and expresses each pruning rule as a mask on it; results are per-A best
 candidates plus a per-B assignment with conflicts resolved by minimum
 distance, then lowest A index. Constants follow ORB-SLAM2: TH_HIGH=100,
@@ -169,4 +169,41 @@ def search_brute(
     return match_gated(
         desc_a, desc_b, gate, max_dist=max_dist, ratio=ratio,
         angle_a=angle_a, angle_b=angle_b, check_rotation=check_rotation,
+    )
+
+
+def epipolar_distance2(xy1: torch.Tensor, xy2: torch.Tensor, F12: torch.Tensor) -> torch.Tensor:
+    """Squared distance of every x2 [B, 2] to the epipolar line
+    l2 = (a, b, c) = x1^T F12 of every x1 [A, 2]:
+    (a u2 + b v2 + c)^2 / (a^2 + b^2), as [A, B] (ORB-SLAM2
+    CheckDistEpipolarLine)."""
+    h1 = torch.cat([xy1, torch.ones_like(xy1[:, :1])], dim=-1)  # [A, 3]
+    h2 = torch.cat([xy2, torch.ones_like(xy2[:, :1])], dim=-1)  # [B, 3]
+    lines = h1 @ F12                                             # [A, 3]
+    num = (lines @ h2.T) ** 2
+    den = lines[:, 0:1] ** 2 + lines[:, 1:2] ** 2
+    return num / torch.clamp(den, min=1e-12)
+
+
+def search_for_triangulation(
+    f1_desc, f1_xy, f1_octave, f1_valid, f1_angle,
+    f2_desc, f2_xy, f2_octave, f2_valid, f2_angle,
+    F12, epipole2, level_sigma2, stereo_mode: bool = False,
+) -> MatchResult:
+    """Match unbound features of two keyframes for triangulation (ORB-SLAM2
+    SearchForTriangulation): epipolar gate at 3.84 sigma^2 of the octave in
+    image 2, a veto near the epipole unless `stereo_mode`, TH_LOW and the
+    rotation histogram."""
+    ep2 = epipolar_distance2(f1_xy, f2_xy, F12)
+    sigma2 = level_sigma2[torch.clamp(f2_octave, 0, level_sigma2.shape[0] - 1).to(torch.int64)]
+    gate = ep2 < 3.84 * sigma2[None, :]
+    if not stereo_mode:
+        d_ep = f2_xy - epipole2[None, :]
+        scale = torch.sqrt(sigma2)
+        near_epipole = torch.sum(d_ep * d_ep, dim=-1) < (100.0 * scale) ** 2
+        gate = gate & ~near_epipole[None, :]
+    gate = gate & f1_valid[:, None] & f2_valid[None, :]
+    return match_gated(
+        f1_desc, f2_desc, gate, max_dist=TH_LOW, ratio=1.0,
+        angle_a=f1_angle, angle_b=f2_angle, check_rotation=True,
     )

@@ -1,9 +1,9 @@
 """Tracking: the per-frame front-end state machine.
 
-Port of `orbslam2_tpu.pipeline.tracking` for RGB-D tracking without
-mapping: the matching and local-map stages as functions on tensors, and
-the host-side `Tracker` (NOT_INITIALIZED -> OK <-> LOST) that sequences
-them. Relocalization and monocular initialization are not ported yet.
+Port of `orbslam2_tpu.pipeline.tracking` for RGB-D: the matching and
+local-map stages as functions on tensors, and the host-side `Tracker`
+(NOT_INITIALIZED -> OK <-> LOST) that sequences them. Relocalization and
+monocular initialization are not ported yet.
 """
 
 from __future__ import annotations
@@ -90,9 +90,10 @@ def reference_kf_match(kf_desc, kf_point_idx, kf_angle, kf_feat_valid, mp_valid,
 
 
 def _top_k(values: torch.Tensor, k: int):
-    """`lax.top_k`: the k largest values, ties in ascending index order."""
-    vals, idx = torch.sort(values, descending=True, stable=True)
-    return vals[:k], idx[:k]
+    """`lax.top_k` over the last dimension: the k largest values, ties in
+    ascending index order (`torch.topk` promises no order among ties)."""
+    vals, idx = torch.sort(values, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
 
 
 def gather_local_map(
@@ -430,8 +431,24 @@ class Tracker:
         self.new_keyframe_ids.append(kf_id)
         if ref_pose_np is not None:
             self._ref_pose_np = np.asarray(ref_pose_np)
-        elif self.ref_kf >= 0:
+        else:
+            self.refresh_ref_pose()
+
+    def refresh_ref_pose(self):
+        """Pull the reference keyframe's current pose to the host (poses
+        are logged relative to it; BA moves keyframes)."""
+        if self.ref_kf >= 0:
             self._ref_pose_np = self.map.kf_Tcw[self.ref_kf].cpu().numpy()
+
+    def remap_trajectory_ref(self, old_ref: int, new_ref: int, Tcp: np.ndarray):
+        """Re-anchor logged frames from a culled keyframe to its spanning-
+        tree parent: Tcw = Tcr @ Tcw[culled] = (Tcr @ Tcp) @ Tcw[parent].
+        ORB-SLAM2 keeps mTcp on SetBadFlag and walks the tree at export
+        time; folding it in at cull time is equivalent."""
+        self.trajectory = [
+            (t, Tcr @ Tcp, new_ref, ok) if ref == old_ref else (t, Tcr, ref, ok)
+            for (t, Tcr, ref, ok) in self.trajectory
+        ]
 
     # -- logging -----------------------------------------------------------
 

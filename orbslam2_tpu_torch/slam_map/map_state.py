@@ -1,9 +1,9 @@
 """The SLAM map as a device-resident struct of tensors.
 
-Port of `orbslam2_tpu.slam_map.map_state` (the parts RGB-D tracking uses):
-fixed-capacity masked arrays for keyframes and map points, a padded
-per-point observation table, per-keyframe feature-to-point bindings and a
-dense covisibility matrix.
+Port of `orbslam2_tpu.slam_map.map_state`: fixed-capacity masked arrays for
+keyframes and map points, a padded per-point observation table,
+per-keyframe feature-to-point bindings and a dense covisibility matrix,
+with the maintenance functions local mapping uses.
 
 State is updated IN PLACE: the functions here write into the tensors of
 the `MapState` they are given, where the reference returns a new pytree and
@@ -13,10 +13,12 @@ donates the old one (`donate_argnums`) so XLA can reuse its buffers.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
 from orbslam2_tpu.config import MapConfig, OrbConfig
+from orbslam2_tpu_torch.ops import hamming
 
 
 @dataclasses.dataclass
@@ -67,6 +69,46 @@ class MapState:
     @property
     def obs_slots(self) -> int:
         return self.mp_obs_kf.shape[1]
+
+
+def masked_put_(arr: torch.Tensor, index, values, mask, accumulate: bool = False) -> None:
+    """In place: ``arr[index] = values`` (``+=`` with `accumulate`) where
+    `mask` holds and the index is in range. `index` is a tensor or a tuple
+    of tensors over the leading dimensions; index, values and mask
+    broadcast together.
+
+    The counterpart of the reference's ``.at[i].set(v, mode="drop")`` with an
+    out-of-range sentinel for the entries to skip: they go to a scratch row
+    past the end of a copy, so no index set is read back to the host (a
+    `nonzero` would wait for the card). Duplicate selected indices have no
+    defined winner, as in the reference; callers that need one arbitrate
+    first."""
+    index = index if isinstance(index, tuple) else (index,)
+    *index, mask = torch.broadcast_tensors(*index, mask)
+    lead = arr.shape[: len(index)]
+    n = math.prod(lead)
+    lin = torch.zeros_like(mask, dtype=torch.int64)
+    for i, size in zip(index, lead):
+        mask = mask & (i >= 0) & (i < size)
+        lin = lin * size + i.to(torch.int64)
+    lin = torch.where(mask, lin, n)
+    if torch.is_tensor(values):
+        values = values.to(arr.dtype)
+    else:  # a fill on the card, not a copy from the host
+        values = torch.full((), values, dtype=arr.dtype, device=arr.device)
+    flat = arr.view((n,) + arr.shape[len(index):])
+    buf = torch.cat([flat, flat[:1]])
+    buf.index_put_((lin,), values, accumulate=accumulate)
+    flat.copy_(buf[:n])
+
+
+def kf_index(k, device) -> torch.Tensor:
+    """A keyframe id as a one-element int64 tensor on `device`. Indexing
+    with a 0-d tensor reads it on the host; with a [1] tensor it does not,
+    so ids chosen on the card (neighbours, targets) stay there."""
+    if torch.is_tensor(k):
+        return k.reshape(1).to(device=device, dtype=torch.int64)
+    return torch.full((1,), int(k), dtype=torch.int64, device=device)
 
 
 def allocate(map_cfg: MapConfig, orb_cfg: OrbConfig, device, obs_slots: int = 16) -> MapState:
@@ -254,3 +296,112 @@ def add_points(
     state.num_mp += sel.shape[0]
     state.kf_point_idx[ref_kf, feat_idx[sel].to(torch.int64)] = p.to(torch.int32)
     return torch.where(ok, pid, -1).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# derived quantities / maintenance
+# ---------------------------------------------------------------------------
+
+
+def recompute_point_stats(state: MapState, point_ids: torch.Tensor, scale_factors: torch.Tensor) -> None:
+    """Re-elect the distinctive descriptor (least median Hamming distance
+    to the other observations) and refresh the mean viewing direction and
+    the scale-invariance band of a batch of points, in place (ORB-SLAM2
+    ComputeDistinctiveDescriptors / UpdateNormalAndDepth). Entries of -1
+    are skipped; only valid points are written.
+
+    The per-point [N, O, O] Hamming distances use the plain
+    `hamming.popcount_u32`, batched, as the reference uses its plain
+    `distance_matrix` under `vmap`."""
+    O = state.obs_slots
+    K = state.capacity_kf
+    i64 = torch.int64
+    pid = torch.where(point_ids >= 0, point_ids, 0).to(i64)
+    ok = (point_ids >= 0) & state.mp_valid[pid]
+
+    obs_kf = state.mp_obs_kf[pid]                        # [N, O]
+    obs_ft = state.mp_obs_feat[pid]
+    has = obs_kf >= 0
+    kf_w = torch.where(has, obs_kf, 0).to(i64)
+    ft_w = torch.where(has, obs_ft, 0).to(i64)
+
+    descs = state.kf_desc[kf_w, ft_w]                    # [N, O, 8]
+    d = torch.zeros(descs.shape[:2] + (O,), dtype=torch.int32, device=descs.device)
+    for w in range(descs.shape[-1]):
+        d += hamming.popcount_u32(torch.bitwise_xor(descs[:, :, None, w], descs[:, None, :, w]))
+    big = 1 << 16
+    d = torch.where(has[:, :, None] & has[:, None, :], d, big)
+    # masked median: sort each row, take the entry at n_valid // 2
+    n_valid = torch.sum(has, dim=1)                      # [N]
+    d_sorted = torch.sort(d, dim=-1).values
+    med_idx = torch.clamp(n_valid // 2, 0, O - 1)
+    med = torch.gather(d_sorted, 2, med_idx[:, None, None].expand(-1, O, 1))[..., 0]
+    med = torch.where(has, med, big)
+    best_obs = torch.argmin(med, dim=1)
+    new_desc = torch.gather(descs, 1, best_obs[:, None, None].expand(-1, 1, 8))[:, 0]
+
+    # normal: mean unit vector from the observers' centres to the point
+    pos = state.mp_pos[pid]                               # [N, 3]
+    T = state.kf_Tcw[kf_w]                                # [N, O, 4, 4]
+    centers = -torch.einsum("nokj,nok->noj", T[..., :3, :3], T[..., :3, 3])
+    dirs = pos[:, None, :] - centers
+    dn = dirs / torch.clamp(torch.linalg.norm(dirs, dim=-1, keepdim=True), min=1e-9)
+    dn = torch.where(has[..., None], dn, 0.0)
+    normal = dn.sum(1) / torch.clamp(n_valid[:, None], min=1)
+
+    # depth band from the octave of the reference keyframe's observation
+    ref = torch.clamp(state.mp_ref_kf[pid], 0, K - 1).to(i64)
+    ref_T = state.kf_Tcw[ref]
+    ref_c = -torch.einsum("nkj,nk->nj", ref_T[..., :3, :3], ref_T[..., :3, 3])
+    dist = torch.linalg.norm(pos - ref_c, dim=-1)
+    ref_slot = torch.argmax((obs_kf == ref[:, None]).to(torch.int32), dim=1)
+    ref_feat = torch.gather(obs_ft, 1, ref_slot[:, None])[:, 0]
+    octv = state.kf_octave[ref, torch.clamp(ref_feat, 0, state.kf_octave.shape[1] - 1).to(i64)]
+    nl = scale_factors.shape[0]
+    max_d = dist * scale_factors[torch.clamp(octv, 0, nl - 1).to(i64)]
+    min_d = max_d / scale_factors[nl - 1]
+
+    masked_put_(state.mp_desc, pid, new_desc, ok)
+    masked_put_(state.mp_normal, pid, normal, ok)
+    masked_put_(state.mp_max_dist, pid, max_d, ok)
+    masked_put_(state.mp_min_dist, pid, min_d, ok)
+
+
+def rebuild_observations(state: MapState) -> torch.Tensor:
+    """Rebuild the observation tables (mp_obs_kf, mp_obs_feat, mp_n_obs) in
+    place from the keyframe binding tables: flatten every (kf, feature,
+    point) binding, sort by point with a stable sort, rank within each
+    point's run and keep the first `obs_slots` of each.
+
+    Returns the number of observations dropped because a point had more
+    observers than `obs_slots` (0-d tensor)."""
+    K, S = state.kf_point_idx.shape
+    P = state.capacity_mp
+    O = state.obs_slots
+    dev = state.kf_point_idx.device
+    pid = state.kf_point_idx
+    pid_c = torch.clamp(pid, 0, P - 1).to(torch.int64)
+    valid = (pid >= 0) & state.kf_feat_valid & state.kf_valid[:, None] & state.mp_valid[pid_c]
+    flat_pid = torch.where(valid, pid, P).reshape(-1).to(torch.int64)
+    kf_ids = torch.arange(K, dtype=torch.int32, device=dev)[:, None].expand(K, S).reshape(-1)
+    ft_ids = torch.arange(S, dtype=torch.int32, device=dev)[None, :].expand(K, S).reshape(-1)
+    order = torch.argsort(flat_pid, stable=True)
+    sp = flat_pid[order]
+    idx = torch.arange(sp.shape[0], device=dev)
+    rank = idx - torch.searchsorted(sp, sp, side="left")
+    ok = (sp < P) & (rank < O)
+    state.mp_obs_kf.fill_(-1)
+    state.mp_obs_feat.fill_(-1)
+    masked_put_(state.mp_obs_kf, (sp, rank), kf_ids[order], ok)
+    masked_put_(state.mp_obs_feat, (sp, rank), ft_ids[order], ok)
+    ur = state.kf_ur.reshape(-1)[order]
+    inc = torch.where(ur >= 0, 2, 1).to(torch.int32)
+    state.mp_n_obs.zero_()
+    masked_put_(state.mp_n_obs, sp, inc, sp < P, accumulate=True)
+    return torch.sum((sp < P) & (rank >= O))
+
+
+def covisible_keyframes(state: MapState, k, min_weight: int = 15) -> torch.Tensor:
+    """[K] mask of keyframes sharing at least `min_weight` points with k
+    (ORB-SLAM2 GetCovisiblesByWeight)."""
+    return (state.covis[k] >= min_weight) & state.kf_valid

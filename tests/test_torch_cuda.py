@@ -54,3 +54,86 @@ def test_pose_kernel_matches_plain(device, n, n_real, rounds, iters):
     assert float((got.Tcw - ref.Tcw).abs().max()) <= 1e-4
     assert torch.equal(got.inliers, ref.inliers)
     assert torch.isfinite(got.chi2).all()
+
+
+def make_ba_problem(rng, n_cams=6, n_pts=256, n_obs=4, pose_noise=0.02, point_noise=0.05,
+                    pix_noise=0.4, outlier_frac=0.08, n_fixed=2, stereo=False):
+    """`tests/test_ba.py`'s `make_ba_problem` without JAX: cameras along x
+    with a small yaw, points in front, each seen by n_obs random cameras,
+    pixel noise, gross outliers and perturbed free cameras and points."""
+    from orbslam2_tpu_torch.geometry import se3
+    from orbslam2_tpu_torch.solvers.ba import BAProblem
+
+    cams_true = np.stack([
+        se3.exp_se3(torch.tensor([0.4 * i, 0.0, 0.0, 0.0, 0.02 * i, 0.0])).numpy()
+        for i in range(n_cams)
+    ])
+    pts_true = np.c_[rng.uniform(-4, 6, n_pts), rng.uniform(-3, 3, n_pts),
+                     rng.uniform(6, 14, n_pts)].astype(np.float32)
+    obs_cam = np.stack([rng.permutation(n_cams)[:n_obs] for _ in range(n_pts)]).astype(np.int64)
+    Ts = cams_true[obs_cam]
+    pc = np.einsum("poij,pj->poi", Ts[..., :3, :3], pts_true) + Ts[..., :3, 3]
+    u = 480.0 * pc[..., 0] / pc[..., 2] + 319.5
+    v = 480.0 * pc[..., 1] / pc[..., 2] + 239.5
+    obs_uv = np.stack([u, v], -1) + rng.normal(0, pix_noise, (n_pts, n_obs, 2))
+    obs_ur = (u - 48.0 / pc[..., 2]) if stereo else np.full((n_pts, n_obs), -1.0)
+    n_out = int(n_pts * n_obs * outlier_frac)
+    pi, oi = rng.integers(0, n_pts, n_out), rng.integers(0, n_obs, n_out)
+    obs_uv[pi, oi] += rng.uniform(15, 60, (n_out, 2)) * np.sign(rng.normal(size=(n_out, 2)))
+    cam_init = cams_true.copy()
+    for i in range(n_fixed, n_cams):
+        cam_init[i] = se3.exp_se3(torch.from_numpy(rng.normal(0, pose_noise, 6).astype(np.float32))
+                                  ).numpy() @ cam_init[i]
+    pts_init = pts_true + rng.normal(0, point_noise, pts_true.shape)
+
+    def t(x, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(x), dtype=dtype)
+
+    return BAProblem(
+        cam_Tcw=t(cam_init), cam_free=t(np.arange(n_cams) >= n_fixed, torch.bool),
+        points=t(pts_init), point_valid=torch.ones(n_pts, dtype=torch.bool),
+        obs_cam=t(obs_cam, torch.int64), obs_uv=t(obs_uv), obs_ur=t(obs_ur),
+        obs_inv_sigma2=torch.ones(n_pts, n_obs), obs_valid=t(pc[..., 2] > 0.5, torch.bool),
+    )
+
+
+@pytest.mark.parametrize("stereo", [False, True], ids=["mono", "stereo"])
+def test_bundle_adjust_card_matches_cpu(device, stereo):
+    """Two-phase BA on the card against the same call on the CPU: poses to
+    1e-4 and points with two or more inlier edges to 1e-3 m (float32; the
+    card sums the reduced system with atomics, in another order), equal
+    inlier sets."""
+    from orbslam2_tpu_torch import config
+    from orbslam2_tpu_torch.geometry.camera import Intrinsics
+    from orbslam2_tpu_torch.solvers import ba
+
+    cam = config.CameraConfig(fx=480.0, fy=480.0, cx=319.5, cy=239.5, bf=48.0)
+    prob = make_ba_problem(np.random.default_rng(7), stereo=stereo)
+    cpu = ba.two_phase_bundle_adjust(prob, Intrinsics.from_config(cam, "cpu"))
+    gpu = ba.two_phase_bundle_adjust(ba.BAProblem(*(x.to(device) for x in prob)),
+                                     Intrinsics.from_config(cam, device))
+    assert float((gpu.cam_Tcw.cpu() - cpu.cam_Tcw).abs().max()) <= 1e-4
+    assert torch.equal(gpu.obs_inlier.cpu(), cpu.obs_inlier)
+    err = torch.linalg.norm(gpu.points.cpu() - cpu.points, dim=-1)
+    assert float(err[cpu.obs_inlier.sum(1) >= 2].max()) <= 1e-3
+
+
+def test_keyframe_full_step_launches_k1(device):
+    """A keyframe step on the card matches descriptors through K1: one
+    launch per triangulation neighbour and fuse target, and one for the
+    union fused back into the keyframe."""
+    from orbslam2_tpu_torch import kernels
+    from orbslam2_tpu_torch.pipeline import fused
+    from chip_smoke import run_session, small_config
+
+    cfg = small_config()
+    slam, _, _ = run_session(cfg, 6, device, mapping=True)
+    t = slam.tracker
+    before = kernels.launch_counts["hamming"]
+    kf_id, *_ = fused.keyframe_full_step(
+        slam.map, t.last_frame, t.last_Tcw, t.last_point_idx,
+        slam.local_mapper.probation_window(), t.K, t._params,
+        slam.local_mapper.level_sigma2, slam.local_mapper.inv_sigma2, **slam._kf_kwargs(),
+    )
+    assert kf_id >= 0 and bool(slam.map.kf_valid[kf_id])
+    assert kernels.launch_counts["hamming"] - before >= 5 + 5 + 1

@@ -45,7 +45,8 @@ def test_cuda_session_raises_without_gpu():
 
 
 @pytest.mark.parametrize("kwargs,cfg", [
-    ({"enable_mapping": True, "enable_loop_closing": False}, SlamConfig()),
+    # mapping is ported; mapping with loop closing is not
+    ({"enable_mapping": True, "enable_loop_closing": True}, SlamConfig()),
     ({"enable_mapping": False, "enable_loop_closing": True}, SlamConfig()),
     ({"enable_mapping": False, "enable_loop_closing": False},
      SlamConfig(tracking=TrackingConfig(pipeline_depth=1))),
