@@ -9,7 +9,9 @@ Phases, each printing its own lines; any failed check exits non-zero:
 3. K1 (Hamming distance) on the card against its plain PyTorch version,
    exact, and both timed with CUDA events;
 4. K2 (pose Gauss-Newton) on the card against its plain version, Tcw to
-   atol 1e-4 and equal inlier sets, and both timed;
+   atol 1e-4 and equal inlier sets, at the RGB-D and stereo paths' 1024
+   slots with part of the observations stereo and at the mono path's 1280
+   slots with all of them 2-D, and both timed at each;
 5. the tracking path: `System.track_rgbd` over 40 frames of the synthetic
    textured-room dolly at the 640x480 / 1000-feature bench configuration,
    mapping and loop closing off. Every frame must be tracked with ATE
@@ -24,10 +26,25 @@ Phases, each printing its own lines; any failed check exits non-zero:
    K1 is then timed at the union-fuse shape the keyframe steps launched;
 8. the mapping session at a small size (320x240, 18 frames) on the card
    and on the CPU: the same keyframes (frames 0, 6 and 17) and per-frame
-   poses within 5 mm and 0.2 degrees.
+   poses within 5 mm and 0.2 degrees;
+9. the stereo path: `System.track_stereo` over the 72 frames at bench.py's
+   configuration with `sensor=STEREO`, mapping on. All 72 frames tracked,
+   ATE < 0.01 m, 16-26 keyframes, more than 2000 points, exactly one K1
+   launch inside every stereo match and one stereo match per frame;
+10. the monocular path: `System.track_monocular` over 24 frames of the
+   lateral sequence at bench.py's mono configuration (1200 features, 1280
+   slots). Initialization by frame 6, every later frame tracked, scaled
+   ATE < 0.03 m, at least 3 keyframes, more than 300 points, K1 launched
+   inside every initialization search; K1 is then timed at that search's
+   shape;
+11. the stereo session at 320x240 (18 frames) and the first 16 frames of
+   the monocular path on the card and on the CPU: the same keyframes (and
+   the same initialization frame), per-frame poses within 5 mm and 0.2
+   degrees. The monocular RANSAC draws come from one CPU generator, so
+   both solve the same minimal sets.
 
 The launch counts are set to 0 just before each path is driven and read
-just after; the kernels line sums the two paths. The last two lines are
+just after; the kernels line sums the four paths. The last two lines are
 a JSON object of the kernels' launch counts, errors and times, and the
 JSON result line. Exits non-zero, printing no result, when no CUDA device
 is available.
@@ -35,6 +52,7 @@ is available.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -55,6 +73,13 @@ MAP_KF_RANGE = (8, 24)    # the reference makes 14 keyframes
 MAP_MIN_POINTS = 2000     # the reference ends with 4712 points
 MAP_MIN_BA = 8
 SMALL_MAP_FRAMES, SMALL_MAP_KFS = 18, [0, 6, 17]
+STEREO_ATE_LIMIT_M = 0.01  # the reference on the CPU gives 0.00402 m here
+STEREO_KF_RANGE = (16, 26)  # the reference makes 21 keyframes
+MONO_FRAMES = 24           # bench.py --all-sensors' mono segment
+MONO_INIT_BY = 6           # the reference initialises at frame 4
+MONO_ATE_LIMIT = 0.03      # scaled; the reference on the CPU gives 0.00735 m
+MONO_MIN_KFS, MONO_MIN_POINTS = 3, 300   # the reference: 3 and 727
+SMALL_MONO_FRAMES = 16
 
 
 def fail(msg: str) -> None:
@@ -159,8 +184,14 @@ def check_k2(device) -> dict:
     T0 = torch.eye(4, device=device)
     rng = np.random.default_rng(0)
     worst = 0.0
-    for n, n_real, n_out in [(1024, 700, 80), (700, 600, 40)]:
-        obs = make_pose_problem(rng, device, n=n, n_real=n_real, n_out=n_out)
+    # (slots, real observations, outliers, share with a right coordinate):
+    # the RGB-D and stereo paths' 1024 slots, a partly filled frame, a
+    # sparser stereo frame, and the mono path's 1280 slots, all 2-D
+    problems = [(1024, 700, 80, 0.6), (700, 600, 40, 0.6), (1024, 700, 80, 0.3),
+                (1280, 900, 80, 0.0)]
+    for n, n_real, n_out, stereo_frac in problems:
+        obs = make_pose_problem(rng, device, n=n, n_real=n_real, n_out=n_out,
+                                stereo_frac=stereo_frac)
         for rounds, iters in [(2, 6), (3, 6), (4, 6), (4, 10)]:
             got = cuda_pose_opt.pose_optimize_cuda(T0, obs, K, rounds=rounds, iters=iters)
             ref = pose_opt.pose_optimize(T0, obs, K, rounds=rounds, iters=iters)
@@ -168,19 +199,27 @@ def check_k2(device) -> dict:
             err = float((got.Tcw - ref.Tcw).abs().max())
             same = torch.equal(got.inliers, ref.inliers)
             chi2_err = float((got.chi2 - ref.chi2)[obs.mask].abs().max())
-            print(f"K2 N={n} {rounds}x{iters}: Tcw max err {err:.3e}, inliers equal {same}"
+            label = f"K2 N={n} stereo {stereo_frac:.0%} {rounds}x{iters}"
+            print(f"{label}: Tcw max err {err:.3e}, inliers equal {same}"
                   f" ({int(got.num_inliers)}), chi2 max err {chi2_err:.3e}", flush=True)
             if not (err <= TOL_K2_TCW and same):
-                fail(f"K2 N={n} {rounds}x{iters} disagrees with the plain version")
+                fail(f"{label} disagrees with the plain version")
             worst = max(worst, err)
-    obs = make_pose_problem(np.random.default_rng(1), device)
-    k = time_ms(lambda: cuda_pose_opt.pose_optimize_cuda(T0, obs, K, rounds=4, iters=6))
-    p = time_ms(lambda: pose_opt.pose_optimize(T0, obs, K, rounds=4, iters=6))
-    print(f"K2 N=1024 4x6: kernel {k:.4f} ms, plain {p:.4f} ms (median of 20)", flush=True)
+    timed = {}
+    for n, n_real, stereo_frac in [(1024, 700, 0.6), (1280, 900, 0.0)]:
+        obs = make_pose_problem(np.random.default_rng(1), device, n=n, n_real=n_real,
+                                stereo_frac=stereo_frac)
+        k = time_ms(lambda: cuda_pose_opt.pose_optimize_cuda(T0, obs, K, rounds=4, iters=6))
+        p = time_ms(lambda: pose_opt.pose_optimize(T0, obs, K, rounds=4, iters=6))
+        timed[n] = (k, p)
+        print(f"K2 N={n} stereo {stereo_frac:.0%} 4x6: kernel {k:.4f} ms, plain {p:.4f} ms "
+              f"(median of 20)", flush=True)
+    k, p = timed[1024]
     return {"name": "pose_gn", "route": "cuda",
             "source": "orbslam2_tpu_torch/csrc/pose_gn.cu",
             "replaces": "orbslam2_tpu/solvers/pallas_pose_opt.py:242",
-            "max_abs_err": worst, "ms": k, "plain_ms": p, "shape": "N=1024, 4x6"}
+            "max_abs_err": worst, "ms": k, "plain_ms": p, "shape": "N=1024, 4x6",
+            "ms_mono_1280": timed[1280][0], "plain_ms_mono_1280": timed[1280][1]}
 
 
 def bench_config(width: int = 640, height: int = 480, features: int = 1000,
@@ -212,24 +251,54 @@ def small_config():
                         local_points=2048, keyframes=32, ba_points=2048, ba_local=16)
 
 
+def mono_config():
+    """bench.py --all-sensors' monocular configuration, synchronous."""
+    from orbslam2_tpu_torch import config as c
+
+    cfg = bench_config()
+    return dataclasses.replace(
+        cfg, sensor=c.Sensor.MONOCULAR,
+        orb=dataclasses.replace(cfg.orb, num_features=1200, feature_slots=1280,
+                                candidates_per_level=4096),
+        tracking=dataclasses.replace(cfg.tracking, th_depth=100.0, mono_init_min_matches=50,
+                                     kf_min_gap=2),
+    )
+
+
+def stereo_config(cfg):
+    from orbslam2_tpu_torch import config as c
+
+    return dataclasses.replace(cfg, sensor=c.Sensor.STEREO)
+
+
 def run_session(cfg, n_frames: int, device, mapping: bool = False):
-    """Drive System.track_rgbd over the forward dolly with the frames staged
-    on `device` first. Returns (slam, seq, per-frame seconds); each frame
-    ends in a host read of its pose, so its time is complete."""
+    """Drive the System entry point of `cfg.sensor` (track_rgbd,
+    track_stereo or track_monocular) over the forward dolly (the lateral
+    sequence for mono), with the frames staged on `device` first. Returns
+    (slam, seq, per-frame seconds); each frame ends in a host read of its
+    pose, so its time is complete."""
+    from orbslam2_tpu_torch import config as c
     from orbslam2_tpu_torch import synthetic
     from orbslam2_tpu_torch.pipeline.system import System
 
-    seq = synthetic.textured_sequence(n_frames=n_frames, kind="forward", seed=0, cam=cfg.camera)
-    frames = [seq.frame(i) for i in range(n_frames)]
-    imgs = torch.from_numpy(np.stack([f[0] for f in frames])).to(device)
-    deps = torch.from_numpy(np.stack([f[1] for f in frames])).to(device)
+    kind = "lateral" if cfg.sensor == c.Sensor.MONOCULAR else "forward"
+    seq = synthetic.textured_sequence(n_frames=n_frames, kind=kind, seed=0, cam=cfg.camera)
+    if cfg.sensor == c.Sensor.STEREO:
+        frames = [seq.stereo(i)[:2] for i in range(n_frames)]
+    else:
+        frames = [seq.frame(i) for i in range(n_frames)]
+    a = torch.from_numpy(np.stack([f[0] for f in frames])).to(device)
+    b = torch.from_numpy(np.stack([f[1] for f in frames])).to(device)
     slam = System(cfg, device=device, enable_mapping=mapping, enable_loop_closing=False)
+    track = {c.Sensor.RGBD: slam.track_rgbd, c.Sensor.STEREO: slam.track_stereo,
+             c.Sensor.MONOCULAR: lambda img, _, timestamp: slam.track_monocular(img, timestamp)}
+    step = track[cfg.sensor]
     secs = []
     for i in range(n_frames):
         if device.type == "cuda":
             torch.cuda.synchronize()
         t0 = time.perf_counter()
-        slam.track_rgbd(imgs[i], deps[i], timestamp=i / 30.0)
+        step(a[i], b[i], timestamp=i / 30.0)
         secs.append(time.perf_counter() - t0)
     if device.type == "cuda":
         torch.cuda.synchronize()
@@ -278,17 +347,30 @@ def pose_gaps(pa, pb):
     return dt, deg
 
 
-def check_small_cpu_agreement(device) -> None:
-    cfg = small_config()
-    gpu, _, _ = run_session(cfg, 6, device)
-    cpu, _, _ = run_session(cfg, 6, torch.device("cpu"))
-    _, pg, tg = gpu.frame_poses()
-    _, pc, tc = cpu.frame_poses()
-    dt, deg = pose_gaps(pg, pc)
-    print(f"small session, card vs CPU: tracked {int(tg.sum())}/{int(tc.sum())} of 6, "
-          f"max dt {dt.max():.3e} m, max rot {deg.max():.3e} deg", flush=True)
-    if not (tg.all() and tc.all() and dt.max() < SMALL_DT_M and deg.max() < SMALL_DEG):
-        fail("the card and the CPU disagree on the small session")
+class K1Probe:
+    """Wraps `module.name` for one session and records the K1 launches
+    inside each call and, when `arg` is given, the row count of that
+    positional argument; launches nothing itself."""
+
+    def __init__(self, module, name: str, arg: int | None = None):
+        from orbslam2_tpu_torch import kernels
+
+        self.per_call, self.rows = [], []
+        self._module, self._name = module, name
+        self._orig = orig = getattr(module, name)
+
+        def wrapped(*a, **k):
+            before = kernels.launch_counts["hamming"]
+            out = orig(*a, **k)
+            self.per_call.append(kernels.launch_counts["hamming"] - before)
+            if arg is not None:
+                self.rows.append(int(a[arg].shape[0]))
+            return out
+
+        setattr(module, name, wrapped)
+
+    def close(self):
+        setattr(self._module, self._name, self._orig)
 
 
 class KeyframeProbe:
@@ -298,37 +380,57 @@ class KeyframeProbe:
     read; nothing is launched here."""
 
     def __init__(self):
-        from orbslam2_tpu_torch import kernels
         from orbslam2_tpu_torch.pipeline import fused
         from orbslam2_tpu_torch.pipeline import local_mapping as lm
 
-        self.k1_per_step, self.ba_runs, self.union_rows = [], 0, []
-        self._saved = [(fused, "keyframe_full_step"), (fused, "local_ba_step"),
-                       (lm, "fuse_points_into_kf")]
-        self._orig = [getattr(m, n) for m, n in self._saved]
-        kf_step, ba_step, fuse_into = self._orig
-
-        def keyframe_full_step(*a, **k):
-            before = kernels.launch_counts["hamming"]
-            out = kf_step(*a, **k)
-            self.k1_per_step.append(kernels.launch_counts["hamming"] - before)
-            return out
+        self.kf_step = K1Probe(fused, "keyframe_full_step")
+        self.union = K1Probe(lm, "fuse_points_into_kf", arg=1)
+        self.ba_runs = 0
+        self._ba = ba_step = fused.local_ba_step
 
         def local_ba_step(*a, **k):
             self.ba_runs += 1
             return ba_step(*a, **k)
 
-        def fuse_points_into_kf(state, point_ids, *a, **k):
-            self.union_rows.append(int(point_ids.shape[0]))
-            return fuse_into(state, point_ids, *a, **k)
+        fused.local_ba_step = local_ba_step
 
-        for (m, n), f in zip(self._saved, (keyframe_full_step, local_ba_step,
-                                           fuse_points_into_kf)):
-            setattr(m, n, f)
+    @property
+    def k1_per_step(self) -> list[int]:
+        return self.kf_step.per_call
+
+    @property
+    def union_rows(self) -> list[int]:
+        return self.union.rows
 
     def close(self):
-        for (m, n), f in zip(self._saved, self._orig):
-            setattr(m, n, f)
+        from orbslam2_tpu_torch.pipeline import fused
+
+        fused.local_ba_step = self._ba
+        self.kf_step.close()
+        self.union.close()
+
+
+def keyframe_frames(slam) -> list[int]:
+    return [i for i, r in enumerate(slam.results) if r.is_keyframe]
+
+
+def print_rates(label: str, secs, kf_frames) -> float:
+    """Print frames/s over frames TIMED_FROM.. and the median ms of
+    keyframe frames and other frames apart; returns the frames/s."""
+    ms_all = 1000 * np.asarray(secs)
+    steady = np.arange(TIMED_FROM, len(secs))
+    is_kf = np.isin(steady, kf_frames)
+    fps = len(steady) / (ms_all[steady].sum() / 1000)
+
+    def med(sel):
+        return f"{np.median(ms_all[steady][sel]):.2f}" if sel.any() else "n/a"
+
+    print(f"{label}: {fps:.2f} frames/s over frames {TIMED_FROM}-{len(secs) - 1}; "
+          f"ms/frame median {np.median(ms_all[steady]):.2f}; keyframe frames median "
+          f"{med(is_kf)} ({int(is_kf.sum())}), other frames median "
+          f"{med(~is_kf)} ({int((~is_kf).sum())})", flush=True)
+    print(f"{label}: ms per frame {np.round(ms_all, 2).tolist()}", flush=True)
+    return fps
 
 
 def check_mapping_path(device) -> dict:
@@ -347,21 +449,13 @@ def check_mapping_path(device) -> dict:
         fail(f"mapping path: poses of shape {poses.shape}, finite {np.isfinite(poses).all()}")
     ate = evaluation.ate_rmse(poses, seq.poses, align=True)
     n_tracked = int(tracked.sum())
-    kf_frames = [i for i, r in enumerate(slam.results) if r.is_keyframe]
-    ms_all = 1000 * np.asarray(secs)
-    steady = np.arange(TIMED_FROM, MAP_FRAMES)
-    is_kf = np.isin(steady, kf_frames)
-    fps = len(steady) / (ms_all[steady].sum() / 1000)
+    kf_frames = keyframe_frames(slam)
     print(f"mapping path: {n_tracked}/{MAP_FRAMES} frames tracked, ATE {ate:.5f} m, "
           f"{slam.num_points()} points, {len(kf_frames)} keyframes made at frames {kf_frames}, "
           f"{slam.num_keyframes()} live", flush=True)
     print(f"mapping path: local BA on {probe.ba_runs} keyframes; K1 launches per keyframe step "
           f"{probe.k1_per_step}; union-fuse rows {probe.union_rows}", flush=True)
-    print(f"mapping path: {fps:.2f} frames/s over frames {TIMED_FROM}-{MAP_FRAMES - 1}; "
-          f"ms/frame median {np.median(ms_all[steady]):.2f}; keyframe frames median "
-          f"{np.median(ms_all[steady][is_kf]):.2f} ({int(is_kf.sum())}), other frames median "
-          f"{np.median(ms_all[steady][~is_kf]):.2f} ({int((~is_kf).sum())})", flush=True)
-    print(f"mapping path: ms per frame {np.round(ms_all, 2).tolist()}", flush=True)
+    fps = print_rates("mapping path", secs, kf_frames)
     print(f"mapping path: launches {launches} over {MAP_FRAMES - 1} frames after initialization",
           flush=True)
     if n_tracked != MAP_FRAMES:
@@ -383,38 +477,130 @@ def check_mapping_path(device) -> dict:
             "union_rows": int(np.median(probe.union_rows)), "slots": cfg.orb.feature_slots}
 
 
-def time_union_fuse_k1(device, rows: int, slots: int) -> dict:
-    """K1 against its plain version at the union-fuse shape the keyframe
-    steps launched (the median row count): exact, and both timed."""
+def time_k1_at(device, rows: int, cols: int, label: str) -> dict:
+    """K1 against its plain version at a shape a path launched: exact, and
+    both timed."""
     from orbslam2_tpu_torch.ops import cuda_hamming, hamming
 
     rng = np.random.default_rng(1)
-    a, b = rand_desc(rng, rows, device), rand_desc(rng, slots, device)
+    a, b = rand_desc(rng, rows, device), rand_desc(rng, cols, device)
     got = cuda_hamming.distance_matrix_cuda(a, b)
     if not torch.equal(got, hamming.distance_matrix(a, b)):
-        fail(f"K1 {rows}x{slots} differs from the plain version")
+        fail(f"K1 {rows}x{cols} differs from the plain version")
     k = time_ms(lambda: cuda_hamming.distance_matrix_cuda(a, b))
     p = time_ms(lambda: hamming.distance_matrix(a, b))
-    print(f"K1 {rows}x{slots} (union fuse): exact; kernel {k:.4f} ms, plain {p:.4f} ms "
-          f"(median of 20)", flush=True)
-    return {"shape_union_fuse": f"{rows}x{slots}", "ms_union_fuse": k, "plain_ms_union_fuse": p}
+    print(f"K1 {rows}x{cols} ({label.replace('_', ' ')}): exact; kernel {k:.4f} ms, "
+          f"plain {p:.4f} ms (median of 20)", flush=True)
+    return {f"shape_{label}": f"{rows}x{cols}", f"ms_{label}": k, f"plain_ms_{label}": p}
 
 
-def check_small_mapping_cpu_agreement(device) -> None:
-    cfg = small_config()
-    gpu, _, _ = run_session(cfg, SMALL_MAP_FRAMES, device, mapping=True)
-    cpu, _, _ = run_session(cfg, SMALL_MAP_FRAMES, torch.device("cpu"), mapping=True)
-    kg = [i for i, r in enumerate(gpu.results) if r.is_keyframe]
-    kc = [i for i, r in enumerate(cpu.results) if r.is_keyframe]
+def check_stereo_path(device) -> dict:
+    from orbslam2_tpu_torch import evaluation, kernels
+    from orbslam2_tpu_torch.ops import stereo
+
+    cfg = stereo_config(bench_config())
+    probe = K1Probe(stereo, "compute_stereo_matches")
+    try:
+        kernels.launch_counts.update(hamming=0, pose_gn=0)
+        slam, seq, secs = run_session(cfg, MAP_FRAMES, device, mapping=True)
+        launches = dict(kernels.launch_counts)
+    finally:
+        probe.close()
+    _, poses, tracked = slam.frame_poses()
+    if poses.shape != (MAP_FRAMES, 4, 4) or not np.isfinite(poses).all():
+        fail(f"stereo path: poses of shape {poses.shape}, finite {np.isfinite(poses).all()}")
+    ate = evaluation.ate_rmse(poses, seq.poses, align=True)
+    n_tracked = int(tracked.sum())
+    kf_frames = keyframe_frames(slam)
+    print(f"stereo path: {n_tracked}/{MAP_FRAMES} frames tracked, ATE {ate:.5f} m, "
+          f"{slam.num_points()} points, {len(kf_frames)} keyframes made at frames {kf_frames}, "
+          f"{slam.num_keyframes()} live", flush=True)
+    last = slam.tracker.last_frame
+    share = float(((last.ur >= 0) & last.valid).sum()) / max(int(last.valid.sum()), 1)
+    print(f"stereo path: {len(probe.per_call)} stereo matches, K1 launches in each "
+          f"{sorted(set(probe.per_call))}; {share:.1%} of the last frame's features matched "
+          f"right (K2's stereo share)", flush=True)
+    fps = print_rates("stereo path", secs, kf_frames)
+    print(f"stereo path: launches {launches} over {MAP_FRAMES - 1} frames after initialization",
+          flush=True)
+    if n_tracked != MAP_FRAMES:
+        fail(f"stereo path lost {MAP_FRAMES - n_tracked} frames")
+    if not ate < STEREO_ATE_LIMIT_M:
+        fail(f"stereo path ATE {ate} >= {STEREO_ATE_LIMIT_M}")
+    if not STEREO_KF_RANGE[0] <= len(kf_frames) <= STEREO_KF_RANGE[1]:
+        fail(f"stereo path made {len(kf_frames)} keyframes, outside {STEREO_KF_RANGE}")
+    if slam.num_points() <= MAP_MIN_POINTS:
+        fail(f"stereo path ended with {slam.num_points()} points")
+    if len(probe.per_call) != MAP_FRAMES or set(probe.per_call) != {1}:
+        fail(f"stereo path: K1 launches per stereo match {probe.per_call}")
+    if launches["pose_gn"] < 3 * (MAP_FRAMES - 1):
+        fail(f"stereo path launched pose_gn {launches['pose_gn']} times, fewer than 3 per frame")
+    return {"launches": launches, "ate_m": ate, "fps": fps}
+
+
+def first_tracked(tracked) -> int:
+    return int(np.argmax(tracked)) if tracked.any() else len(tracked)
+
+
+def check_mono_path(device) -> dict:
+    from orbslam2_tpu_torch import evaluation, kernels
+    from orbslam2_tpu_torch.ops import match
+
+    cfg = mono_config()
+    probe = K1Probe(match, "search_for_initialization", arg=0)
+    try:
+        kernels.launch_counts.update(hamming=0, pose_gn=0)
+        slam, seq, secs = run_session(cfg, MONO_FRAMES, device, mapping=True)
+        launches = dict(kernels.launch_counts)
+    finally:
+        probe.close()
+    _, poses, tracked = slam.frame_poses()
+    if poses.shape != (MONO_FRAMES, 4, 4) or not np.isfinite(poses).all():
+        fail(f"mono path: poses of shape {poses.shape}, finite {np.isfinite(poses).all()}")
+    init = first_tracked(tracked)
+    ate = (evaluation.ate_rmse(poses[tracked], seq.poses[tracked], align=True, with_scale=True)
+           if tracked.sum() >= 3 else float("inf"))
+    kf_frames = keyframe_frames(slam)
+    print(f"mono path: initialised at frame {init}, {int(tracked.sum())}/{MONO_FRAMES} frames "
+          f"tracked, scaled ATE {ate:.5f}, {slam.num_points()} points, {slam.num_keyframes()} "
+          f"keyframes (made at frames {kf_frames})", flush=True)
+    print(f"mono path: {len(probe.per_call)} initialization searches, K1 launches in each "
+          f"{probe.per_call}", flush=True)
+    fps = print_rates("mono path", secs, kf_frames)
+    print(f"mono path: launches {launches}", flush=True)
+    if init > MONO_INIT_BY or not tracked[init:].all():
+        fail(f"mono path: initialised at frame {init}, tracked {tracked.astype(int).tolist()}")
+    if not ate < MONO_ATE_LIMIT:
+        fail(f"mono path scaled ATE {ate} >= {MONO_ATE_LIMIT}")
+    if slam.num_keyframes() < MONO_MIN_KFS or slam.num_points() <= MONO_MIN_POINTS:
+        fail(f"mono path: {slam.num_keyframes()} keyframes, {slam.num_points()} points")
+    if not probe.per_call or min(probe.per_call) < 1:
+        fail(f"mono path: K1 launches per initialization search {probe.per_call}")
+    if launches["pose_gn"] < 3 * (MONO_FRAMES - init - 1):
+        fail(f"mono path launched pose_gn {launches['pose_gn']} times, fewer than 3 per frame")
+    return {"launches": launches, "ate": ate, "fps": fps, "search_rows": probe.rows[-1],
+            "slots": cfg.orb.feature_slots}
+
+
+def check_small_cpu_agreement(device, cfg, n_frames: int, label: str, mapping: bool = True,
+                              expect_kfs=None) -> None:
+    """One session on the card and on the CPU: the same initialization
+    frame and keyframes (`expect_kfs` when given), every frame after the
+    initialization tracked, per-frame poses within 5 mm and 0.2 degrees."""
+    gpu, _, _ = run_session(cfg, n_frames, device, mapping=mapping)
+    cpu, _, _ = run_session(cfg, n_frames, torch.device("cpu"), mapping=mapping)
+    kg, kc = keyframe_frames(gpu), keyframe_frames(cpu)
     _, pg, tg = gpu.frame_poses()
     _, pc, tc = cpu.frame_poses()
-    dt, deg = pose_gaps(pg, pc)
-    print(f"small mapping session, card vs CPU: keyframes {kg} / {kc}, points "
-          f"{gpu.num_points()} / {cpu.num_points()}, tracked {int(tg.sum())}/{int(tc.sum())} of "
-          f"{SMALL_MAP_FRAMES}, max dt {dt.max():.3e} m, max rot {deg.max():.3e} deg", flush=True)
-    if not (kg == kc == SMALL_MAP_KFS and tg.all() and tc.all()
-            and dt.max() < SMALL_DT_M and deg.max() < SMALL_DEG):
-        fail("the card and the CPU disagree on the small mapping session")
+    both = tg & tc
+    dt, deg = pose_gaps(pg[both], pc[both])
+    print(f"{label}, card vs CPU: initialised at frame {first_tracked(tg)} / {first_tracked(tc)}, "
+          f"keyframes {kg} / {kc}, points {gpu.num_points()} / {cpu.num_points()}, tracked "
+          f"{int(tg.sum())}/{int(tc.sum())} of {n_frames}, max dt {dt.max():.3e}, "
+          f"max rot {deg.max():.3e} deg", flush=True)
+    if not (kg == kc and (expect_kfs is None or kg == expect_kfs) and np.array_equal(tg, tc)
+            and tg[first_tracked(tg):].all() and dt.max() < SMALL_DT_M and deg.max() < SMALL_DEG):
+        fail(f"the card and the CPU disagree on the {label}")
 
 
 def main() -> None:
@@ -429,7 +615,7 @@ def main() -> None:
     card = card_line()
     print(card, flush=True)
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     kernels.build()
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc {kernels.build_seconds:.2f} s)", flush=True)
     for line in kernels.build_log.splitlines():
@@ -439,15 +625,25 @@ def main() -> None:
     k1 = check_k1(device)
     k2 = check_k2(device)
     main_path = check_main_path(device)
-    check_small_cpu_agreement(device)
+    check_small_cpu_agreement(device, small_config(), 6, "small session", mapping=False)
     mapping = check_mapping_path(device)
-    k1.update(time_union_fuse_k1(device, mapping["union_rows"], mapping["slots"]))
-    check_small_mapping_cpu_agreement(device)
+    k1.update(time_k1_at(device, mapping["union_rows"], mapping["slots"], "union_fuse"))
+    check_small_cpu_agreement(device, small_config(), SMALL_MAP_FRAMES, "small mapping session",
+                              expect_kfs=SMALL_MAP_KFS)
+    stereo_path = check_stereo_path(device)
+    mono_path = check_mono_path(device)
+    k1.update(time_k1_at(device, mono_path["search_rows"], mono_path["slots"], "mono_search"))
+    check_small_cpu_agreement(device, stereo_config(small_config()), SMALL_MAP_FRAMES,
+                              "small stereo session")
+    check_small_cpu_agreement(device, mono_config(), SMALL_MONO_FRAMES, "small mono session")
 
     if "jax" in sys.modules:
         fail("jax was imported")
-    k1["launches"] = main_path["launches"]["hamming"] + mapping["launches"]["hamming"]
-    k2["launches"] = main_path["launches"]["pose_gn"] + mapping["launches"]["pose_gn"]
+    paths = (main_path, mapping, stereo_path, mono_path)
+    k1["launches"] = sum(p["launches"]["hamming"] for p in paths)
+    k2["launches"] = sum(p["launches"]["pose_gn"] for p in paths)
+    print(f"total: {time.perf_counter() - t_start:.1f} s from the build to the last phase",
+          flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": [k1, k2]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

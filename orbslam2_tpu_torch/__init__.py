@@ -12,9 +12,10 @@ nothing of the reference package itself: `config`, `synthetic` and
 `trajectory` (from `orbslam2_tpu.io`), `evaluation` and `eventlog` (from
 `orbslam2_tpu.utils`).
 
-Ported so far: RGB-D tracking with mapping and loop closing off
-(`pipeline.system.System(cfg, device, enable_mapping=False,
-enable_loop_closing=False)`).
+Ported so far: tracking and local mapping for the RGB-D, stereo and
+monocular sensors with loop closing off (`pipeline.system.System(cfg,
+device, enable_mapping=True, enable_loop_closing=False)`), trajectory
+export and map save / load.
 """
 
 from orbslam2_tpu import config

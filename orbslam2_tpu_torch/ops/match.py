@@ -1,9 +1,9 @@
 """Descriptor matching: dense gated Hamming matching with ratio tests,
 rotation-consistency filtering and projection-guided search.
 
-Port of the parts of `orbslam2_tpu.ops.match` the RGB-D tracking and
-mapping paths call. Every matcher computes the full [A, B] distance matrix (kernel K1)
-and expresses each pruning rule as a mask on it; results are per-A best
+Port of the parts of `orbslam2_tpu.ops.match` that tracking, mapping and
+monocular initialization call. Every matcher computes the full [A, B]
+distance matrix (kernel K1) and expresses each pruning rule as a mask on it; results are per-A best
 candidates plus a per-B assignment with conflicts resolved by minimum
 distance, then lowest A index. Constants follow ORB-SLAM2: TH_HIGH=100,
 TH_LOW=50, HISTO_LENGTH=30.
@@ -156,6 +156,24 @@ def search_frame_to_frame(
     return match_gated(
         prev_desc, feat_desc, gate, max_dist=max_dist, ratio=0.9,
         angle_a=prev_angle, angle_b=feat_angle, check_rotation=check_rotation,
+    )
+
+
+def search_for_initialization(
+    f1_desc, f1_xy, f1_octave, f1_valid, f1_angle,
+    f2_desc, f2_xy, f2_octave, f2_valid, f2_angle,
+    window: float = 100.0, max_level: int = 0,
+) -> MatchResult:
+    """Windowed search for monocular initialization (ORB-SLAM2
+    SearchForInitialization): a 100 px window, ratio 0.9, TH_LOW and the
+    rotation check, over octaves up to `max_level` (0 in ORB-SLAM2;
+    coordinates are level-0 pixels either way)."""
+    valid_a = f1_valid & (f1_octave <= max_level)
+    valid_b = f2_valid & (f2_octave <= max_level)
+    gate = radius_gate(f1_xy, f2_xy, torch.full_like(f1_xy[:, 0], window), valid_a, valid_b)
+    return match_gated(
+        f1_desc, f2_desc, gate, max_dist=TH_LOW, ratio=0.9,
+        angle_a=f1_angle, angle_b=f2_angle, check_rotation=True,
     )
 
 

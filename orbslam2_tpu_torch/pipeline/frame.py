@@ -1,6 +1,9 @@
-"""Frame construction: ORB extraction + undistortion + RGB-D depth seeding.
+"""Frame construction: ORB extraction, undistortion and depth seeding.
 
-Port of `orbslam2_tpu.pipeline.frame` (the RGB-D constructor).
+Port of `orbslam2_tpu.pipeline.frame`: the monocular, stereo and RGB-D
+constructors each produce one fixed-shape FrameData. A stereo frame runs
+both images through the one ORB extractor and matches them
+(`ops.stereo.compute_stereo_matches`, which launches K1 once).
 """
 
 from __future__ import annotations
@@ -11,7 +14,7 @@ import torch
 
 from orbslam2_tpu.config import SlamConfig
 from orbslam2_tpu_torch.geometry import camera as cam_geo
-from orbslam2_tpu_torch.ops import orb, stereo
+from orbslam2_tpu_torch.ops import orb, pyramid, stereo
 
 
 class FrameData(NamedTuple):
@@ -59,6 +62,69 @@ def rgbd_frame(
     )
 
 
+def monocular_frame(
+    extractor: orb.OrbExtractor,
+    image: torch.Tensor,
+    frame_id: int,
+    timestamp: float,
+    K: cam_geo.Intrinsics,
+    has_distortion: bool,
+) -> FrameData:
+    """ORB extraction + undistortion of one monocular frame: no feature has
+    depth."""
+    feats = extractor(image)
+    und = cam_geo.undistort_pixels(feats.xy, K) if has_distortion else feats.xy
+    no_depth = torch.full(feats.valid.shape, -1.0, device=image.device)
+    return FrameData(
+        frame_id=frame_id,
+        timestamp=timestamp,
+        xy=und,
+        xy_raw=feats.xy,
+        ur=no_depth,
+        depth=no_depth.clone(),
+        octave=feats.octave,
+        angle=feats.angle,
+        desc=feats.desc,
+        valid=feats.valid,
+    )
+
+
+def stereo_frame(
+    extractor: orb.OrbExtractor,
+    left: torch.Tensor,
+    right: torch.Tensor,
+    frame_id: int,
+    timestamp: float,
+    K: cam_geo.Intrinsics,
+    scale_factors: torch.Tensor,
+    has_distortion: bool,
+) -> FrameData:
+    """ORB extraction of both images, the stereo match on their pyramids and
+    undistortion of the left keypoints, for one rectified pair."""
+    fl = extractor(left)
+    fr = extractor(right)
+    lv_l = pyramid.build_pyramid(left, extractor.orb)
+    lv_r = pyramid.build_pyramid(right, extractor.orb)
+    sm = stereo.compute_stereo_matches(
+        fl.xy, fl.octave, fl.desc, fl.valid,
+        fr.xy, fr.octave, fr.desc, fr.valid,
+        lv_l, lv_r, scale_factors, K.bf, K.fx,
+    )
+    und = cam_geo.undistort_pixels(fl.xy, K) if has_distortion else fl.xy
+    return FrameData(
+        frame_id=frame_id,
+        timestamp=timestamp,
+        xy=und,
+        xy_raw=fl.xy,
+        ur=sm.u_right,
+        depth=sm.depth,
+        octave=fl.octave,
+        angle=fl.angle,
+        desc=fl.desc,
+        valid=fl.valid,
+    )
+
+
 class FrameBuilder:
     """Builds FrameData from images; owns the config, the intrinsics and
     the ORB extractor, all on `device`."""
@@ -68,6 +134,8 @@ class FrameBuilder:
         self.device = torch.device(device)
         self.K = cam_geo.Intrinsics.from_config(cfg.camera, device=self.device)
         self.extractor = orb.OrbExtractor(cfg.orb).to(self.device)
+        self.scale_factors = torch.tensor(pyramid.level_scales(cfg.orb), dtype=torch.float32,
+                                          device=self.device)
         self._next_id = 0
 
     def _fresh_id(self) -> int:
@@ -75,8 +143,18 @@ class FrameBuilder:
         self._next_id += 1
         return i
 
+    def monocular(self, image: torch.Tensor, timestamp: float = 0.0) -> FrameData:
+        return monocular_frame(self.extractor, image, self._fresh_id(), timestamp, self.K,
+                               self.cfg.camera.has_distortion())
+
     def rgbd(self, image: torch.Tensor, depth_map: torch.Tensor, timestamp: float = 0.0) -> FrameData:
         return rgbd_frame(
             self.extractor, image, depth_map, self._fresh_id(), timestamp, self.K,
             1.0 / self.cfg.tracking.depth_map_factor, self.cfg.camera.has_distortion(),
+        )
+
+    def stereo(self, left: torch.Tensor, right: torch.Tensor, timestamp: float = 0.0) -> FrameData:
+        return stereo_frame(
+            self.extractor, left, right, self._fresh_id(), timestamp, self.K,
+            self.scale_factors, self.cfg.camera.has_distortion(),
         )

@@ -1,14 +1,16 @@
-"""The per-frame and per-keyframe steps of the RGB-D pipeline.
+"""The per-frame and per-keyframe steps of the pipeline.
 
-Port of `orbslam2_tpu.pipeline.fused` for RGB-D:
+Port of `orbslam2_tpu.pipeline.fused`:
 - `track_step` (reference-keyframe coarse tracking with a motion-model
-  fallback, then two local-map association / pose-optimisation passes) and
-  `track_frame_rgbd` (frame build + track step);
+  fallback, then two local-map association / pose-optimisation passes),
+  and `track_frame_rgbd` and `track_frame_stereo` (frame build + track
+  step);
 - `keyframe_step` (insertion, depth-seeded points, triangulation, fusion),
   `local_ba_step`, `_reanchor_depth_seeds` and `keyframe_full_step`
   (all of them plus probation culling and the keyframe-redundancy sweep);
-- `frame_and_keyframe_step`, which runs the keyframe branch on the frames
-  the policy picks.
+- `frame_and_keyframe_step`, which builds the frame for any sensor
+  (RGB-D, stereo or monocular), tracks it and runs the keyframe branch on
+  the frames the policy picks.
 
 PyTorch runs eagerly, so "fused" names the stage boundaries of the
 reference rather than one compiled program. The map is updated in place.
@@ -18,7 +20,8 @@ from the card. On ``use_ref`` that is one host synchronisation per frame,
 and the motion-model branch (two K1 and one K2 launches) runs only on the
 frames that need it, as the untaken ``lax.cond`` branch did. Each frame
 therefore launches K1 at least 3 times (reference-keyframe match, two
-local passes) and K2 at least 3 times, 5 and 4 with the motion model. A
+local passes) and K2 at least 3 times, 5 and 4 with the motion model; a
+stereo frame adds one K1 launch for its left-right match. A
 keyframe adds K1 launches for triangulation (one per neighbour) and
 fusion (one per target, and one for the union back into the keyframe);
 K2 does not run in mapping.
@@ -35,7 +38,7 @@ from orbslam2_tpu_torch.geometry import se3
 from orbslam2_tpu_torch.ops.orb import OrbExtractor
 from orbslam2_tpu_torch.pipeline import local_mapping as lm
 from orbslam2_tpu_torch.pipeline import tracking as trk
-from orbslam2_tpu_torch.pipeline.frame import FrameData, rgbd_frame
+from orbslam2_tpu_torch.pipeline.frame import FrameData, monocular_frame, rgbd_frame, stereo_frame
 from orbslam2_tpu_torch.slam_map import map_state as ms
 from orbslam2_tpu_torch.solvers import ba
 from orbslam2_tpu_torch.solvers.cuda_pose_opt import pose_optimize_fast
@@ -209,6 +212,41 @@ def track_frame_rgbd(
     and the tracking step. Returns (FrameData, TrackOut)."""
     frame = rgbd_frame(extractor, image, depth_map, frame_id, 0.0, K,
                        inv_depth_factor, has_distortion)
+    out = track_step(
+        state, frame, last_xy, last_point_idx, last_octave, last_angle,
+        last_desc, last_Tcw, velocity, has_velocity, ref_kf, K, p,
+        max_local_kfs=max_local_kfs, max_local_points=max_local_points,
+        num_levels=num_levels,
+    )
+    return frame, out
+
+
+def track_frame_stereo(
+    state: ms.MapState,
+    extractor: OrbExtractor,
+    left,
+    right,
+    frame_id: int,
+    last_xy,
+    last_point_idx,
+    last_octave,
+    last_angle,
+    last_desc,
+    last_Tcw,
+    velocity,
+    has_velocity: bool,
+    ref_kf: int,
+    K: cam_geo.Intrinsics,
+    p: TrackParams,
+    max_local_kfs: int = 80,
+    max_local_points: int = 4096,
+    num_levels: int = 8,
+    has_distortion: bool = False,
+) -> tuple[FrameData, TrackOut]:
+    """Stereo sibling of `track_frame_rgbd`: extraction of both images, the
+    stereo match and the tracking step. Returns (FrameData, TrackOut)."""
+    frame = stereo_frame(extractor, left, right, frame_id, 0.0, K, p.scale_factors,
+                         has_distortion)
     out = track_step(
         state, frame, last_xy, last_point_idx, last_octave, last_angle,
         last_desc, last_Tcw, velocity, has_velocity, ref_kf, K, p,
@@ -538,20 +576,34 @@ def frame_and_keyframe_step(
     """One steady-state frame: frame build, tracking, the keyframe policy
     (ORB-SLAM2 NeedNewKeyFrame) and, on a keyframe, `keyframe_full_step`.
 
+    `sensor` selects the frame build: "rgbd" (image and depth map),
+    "stereo" (image = left, depth_map = right) or "mono" (depth_map is
+    ignored); tracking and the keyframe logic are shared.
+
     The reference's ``lax.cond`` on the decision becomes a Python ``if``
     on one host read of (accept, inliers, decision), the scalars the host
     needs for every frame anyway: the keyframe branch runs only on
     keyframes. `probation_window` may be a host array; it reaches the card
     only on a keyframe. With mapping disabled the decision is false."""
-    if sensor != "rgbd":
-        raise NotImplementedError(f"sensor={sensor!r}: only RGB-D is ported")
-    frame, out = track_frame_rgbd(
-        state, extractor, image, depth_map, frame_id,
-        last_xy, last_point_idx, last_octave, last_angle, last_desc,
-        last_Tcw, velocity, has_velocity, ref_kf, K, p, inv_depth_factor,
-        max_local_kfs=max_local_kfs, max_local_points=max_local_points,
-        num_levels=num_levels, has_distortion=has_distortion,
-    )
+    last = (last_xy, last_point_idx, last_octave, last_angle, last_desc, last_Tcw, velocity,
+            has_velocity, ref_kf, K, p)
+    sizes = dict(max_local_kfs=max_local_kfs, max_local_points=max_local_points,
+                 num_levels=num_levels)
+    if sensor == "rgbd":
+        frame, out = track_frame_rgbd(
+            state, extractor, image, depth_map, frame_id, *last, inv_depth_factor,
+            has_distortion=has_distortion, **sizes,
+        )
+    elif sensor == "stereo":
+        frame, out = track_frame_stereo(
+            state, extractor, image, depth_map, frame_id, *last,
+            has_distortion=has_distortion, **sizes,
+        )
+    elif sensor == "mono":
+        frame = monocular_frame(extractor, image, frame_id, 0.0, K, has_distortion)
+        out = track_step(state, frame, *last, **sizes)
+    else:
+        raise ValueError(f"unknown sensor {sensor!r}")
 
     ratio = 0.4 if n_keyframes <= 2 else kf_ratio
     need_ratio = out.n_inliers < ratio * torch.clamp(out.ref_tracked, min=1)

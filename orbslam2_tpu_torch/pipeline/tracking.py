@@ -1,9 +1,10 @@
 """Tracking: the per-frame front-end state machine.
 
-Port of `orbslam2_tpu.pipeline.tracking` for RGB-D: the matching and
-local-map stages as functions on tensors, and the host-side `Tracker`
-(NOT_INITIALIZED -> OK <-> LOST) that sequences them. Relocalization and
-monocular initialization are not ported yet.
+Port of `orbslam2_tpu.pipeline.tracking`: the matching and local-map
+stages as functions on tensors, and the host-side `Tracker`
+(NOT_INITIALIZED -> OK <-> LOST) that sequences them, with the stereo /
+RGB-D and the monocular (two-view H/F) initializations. Relocalization is
+not ported yet.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from orbslam2_tpu_torch.geometry import se3
 from orbslam2_tpu_torch.ops import match
 from orbslam2_tpu_torch.pipeline.frame import FrameBuilder, FrameData
 from orbslam2_tpu_torch.slam_map import map_state as ms
+from orbslam2_tpu_torch.solvers import initializer as mono_init
 from orbslam2_tpu_torch.solvers import pose_opt
 
 
@@ -87,6 +89,17 @@ def reference_kf_match(kf_desc, kf_point_idx, kf_angle, kf_feat_valid, mp_valid,
     return torch.where(
         assigned >= 0, kf_point_idx[_i64(torch.clamp(assigned, 0, kf_desc.shape[0] - 1))], -1
     )
+
+
+def _nanmedian(x: torch.Tensor) -> torch.Tensor:
+    """`jnp.nanmedian` of a vector: the mean of the two middle values of an
+    even count (`torch.nanmedian` returns the lower one), NaN when every
+    entry is NaN. No host read: the sort puts NaN last."""
+    v, _ = torch.sort(x)
+    n = torch.sum(~torch.isnan(x)).reshape(1)
+    lo = v.gather(0, torch.clamp(torch.div(n - 1, 2, rounding_mode="floor"), min=0))[0]
+    hi = v.gather(0, torch.clamp(torch.div(n, 2, rounding_mode="floor"), max=x.shape[0] - 1))[0]
+    return 0.5 * lo + 0.5 * hi
 
 
 def _top_k(values: torch.Tensor, k: int):
@@ -268,13 +281,18 @@ class Tracker:
         # set when the policy requests a keyframe; consumed by System
         self.kf_request = None
         self.new_keyframe_ids: list[int] = []
+        # monocular initialization: the first frame of the pair, and the
+        # CPU generator of the RANSAC draws (the card and the CPU draw the
+        # same minimal sets)
+        self.init_frame: Optional[FrameData] = None
+        self.init_generator = torch.Generator().manual_seed(cfg.seed)
         # per-frame trajectory log: (timestamp, Tcr, ref_kf, tracked)
         self.trajectory: list[tuple[float, np.ndarray, int, bool]] = []
 
     # -- initialization ----------------------------------------------------
 
     def _stereo_initialize(self, frame: FrameData) -> bool:
-        """RGB-D initialization: gate on the feature and depth-seed counts,
+        """Stereo and RGB-D initialization: gate on the feature and depth-seed counts,
         insert the first keyframe at the origin and create a point for
         every feature with depth."""
         n_feat = int(torch.sum(frame.valid))
@@ -325,10 +343,92 @@ class Tracker:
             frame.desc, normal, min_d, max_d, frame.ur,
         )
 
+    def draw_init_samples(self, mask: torch.Tensor) -> torch.Tensor:
+        """The [iters, 8] minimal sets of one initialization attempt, drawn
+        on the CPU (`initializer.draw_init_samples`); a test may replace
+        this method to reproduce another draw."""
+        return mono_init.draw_init_samples(mask, self.cfg.solver.init_ransac_iters,
+                                           self.init_generator)
+
+    def _monocular_initialize(self, frame: FrameData) -> bool:
+        """Two-view bootstrap (ORB-SLAM2 MonocularInitialization and
+        CreateInitialMapMonocular): the first frame with enough features
+        is kept; a later frame with enough window matches to it runs the
+        H/F initializer, and on success both become keyframes, with the
+        map scaled to a median depth of 1."""
+        min_m = self.cfg.tracking.mono_init_min_matches
+        n_feat = int(torch.sum(frame.valid))
+        if self.init_frame is None:
+            if n_feat > min_m:
+                self.init_frame = frame
+            return False
+        f0 = self.init_frame
+        res = match.search_for_initialization(
+            f0.desc, f0.xy, f0.octave, f0.valid, f0.angle,
+            frame.desc, frame.xy, frame.octave, frame.valid, frame.angle,
+            max_level=self.cfg.orb.num_levels - 1,
+        )
+        n = int(res.num_matches)
+        if n < min_m:
+            self.init_frame = frame if n_feat >= min_m else None
+            return False
+        # align the matches: per f0 slot, the frame's slot
+        S = frame.xy.shape[0]
+        matched = res.best_idx >= 0
+        f2c = torch.clamp(res.best_idx, 0, S - 1)
+        init = mono_init.initialize(
+            f0.xy, frame.xy[_i64(f2c)], matched, self.K, self.draw_init_samples(matched),
+            sigma=self.cfg.solver.init_sigma,
+        )
+        if not bool(init.success):
+            return False
+        good = init.good & matched
+        if int(torch.sum(good)) < min_m:
+            return False
+        # median-depth scale normalization
+        med = _nanmedian(torch.where(good, init.points3d[:, 2], float("nan")))
+        inv_med = 1.0 / torch.clamp(med, min=1e-6)
+        pts = init.points3d * inv_med
+        T21 = init.T21.clone()
+        T21[:3, 3] *= inv_med
+
+        unbound = torch.full((S,), -1, dtype=torch.int32, device=self.device)
+        kf0 = ms.add_keyframe(
+            self.map, f0.frame_id, se3.identity(device=self.device),
+            f0.xy, f0.ur, f0.depth, f0.octave, f0.angle, f0.desc, f0.valid, unbound,
+        )
+        kf1 = ms.add_keyframe(
+            self.map, frame.frame_id, T21,
+            frame.xy, frame.ur, frame.depth, frame.octave, frame.angle, frame.desc,
+            frame.valid, unbound,
+        )
+        # points seeded in kf0's feature slots, then bound to kf1
+        dist = torch.linalg.norm(pts, dim=-1)
+        normal = pts / torch.clamp(dist[:, None], min=1e-9)
+        nl = self.cfg.orb.num_levels
+        max_d = dist * self.scale_factors[_i64(torch.clamp(f0.octave, 0, nl - 1))]
+        min_d = max_d / float(self.cfg.orb.scale_factor ** (nl - 1))
+        pids = ms.add_points(
+            self.map, pts, good, kf0, torch.arange(S, dtype=torch.int32, device=self.device),
+            f0.desc, normal, min_d, max_d, torch.full((S,), -1.0, device=self.device),
+        )
+        from orbslam2_tpu_torch.pipeline import local_mapping as lm
+
+        lm.bind_points_to_kf(self.map, kf1, f2c.to(torch.int32), pids, pids >= 0)
+        ms.update_covisibility_row(self.map, kf1)
+        ms.recompute_point_stats(self.map, pids, self.scale_factors)
+        self.ref_kf = kf1
+        self.last_Tcw = T21
+        self.last_point_idx = self.map.kf_point_idx[kf1].clone()
+        self.new_keyframe_ids.extend([kf0, kf1])
+        self.n_keyframes = 2
+        self._ref_pose_np = T21.cpu().numpy()
+        return True
+
     # -- main entry --------------------------------------------------------
 
     def process(self, frame: FrameData) -> TrackResult:
-        """One RGB-D frame through the state machine (the synchronous path;
+        """One frame through the state machine (the synchronous path;
         steady-state frames go through System's dispatch)."""
         if self.state == TrackState.LOST:
             # relocalization is not ported: without a keyframe database the
@@ -337,13 +437,21 @@ class Tracker:
             Tcw = self.last_Tcw.cpu().numpy() if self.last_Tcw is not None else np.eye(4)
             return TrackResult(Tcw, self.state, 0, False)
         if self.state == TrackState.NOT_INITIALIZED:
-            if self._stereo_initialize(frame):
+            if self.cfg.sensor in (Sensor.STEREO, Sensor.RGBD):
+                if self._stereo_initialize(frame):
+                    self.state = TrackState.OK
+                    self.last_Tcw = se3.identity(device=self.device)
+                    self.last_frame = frame
+                    self.frames_since_kf = 0
+                    self._log_pose(frame, True)
+                    return TrackResult(np.eye(4), self.state, 0, True)
+            elif self._monocular_initialize(frame):
                 self.state = TrackState.OK
-                self.last_Tcw = se3.identity(device=self.device)
                 self.last_frame = frame
                 self.frames_since_kf = 0
-                self._log_pose(frame, True)
-                return TrackResult(np.eye(4), self.state, 0, True)
+                Tcw_np = self.last_Tcw.cpu().numpy()
+                self._log_pose(frame, True, Tcw_np)
+                return TrackResult(Tcw_np, self.state, 0, True)
             self._log_pose(frame, False)
             return TrackResult(np.eye(4), TrackState.NOT_INITIALIZED, 0, False)
 

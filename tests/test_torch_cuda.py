@@ -137,3 +137,110 @@ def test_keyframe_full_step_launches_k1(device):
     )
     assert kf_id >= 0 and bool(slam.map.kf_valid[kf_id])
     assert kernels.launch_counts["hamming"] - before >= 5 + 5 + 1
+
+
+def _stereo_match_on(dev):
+    """`compute_stereo_matches` of one forward-dolly pair at 640x480, its
+    features extracted on the CPU, the pyramids and the match on `dev`."""
+    from orbslam2_tpu_torch import config, synthetic
+    from orbslam2_tpu_torch.ops import orb, pyramid, stereo
+
+    cam = config.CameraConfig(fx=480.0, fy=480.0, cx=319.5, cy=239.5, bf=48.0)
+    orb_cfg = config.OrbConfig(num_features=1000, feature_slots=1024)
+    left, right, _ = synthetic.textured_sequence(n_frames=4, kind="forward", cam=cam).stereo(2)
+    ext = orb.OrbExtractor(orb_cfg)
+    fl, fr = ext(torch.from_numpy(left)), ext(torch.from_numpy(right))
+    sf = torch.tensor(pyramid.level_scales(orb_cfg))
+    to = [x.to(dev) for x in (fl.xy, fl.octave, fl.desc, fl.valid,
+                              fr.xy, fr.octave, fr.desc, fr.valid)]
+    lv = [pyramid.build_pyramid(torch.from_numpy(im).to(dev), orb_cfg) for im in (left, right)]
+    args = (*to, *lv, sf.to(dev), torch.tensor(48.0, device=dev), torch.tensor(480.0, device=dev))
+    return lambda: stereo.compute_stereo_matches(*args)
+
+
+def test_stereo_matches_card_matches_cpu(device):
+    """`compute_stereo_matches` on the card against the CPU for the same
+    images and features, with one K1 launch: the matched sets equal up to
+    1 % at the median threshold, u_right to 1e-3 px, depth to 1e-4."""
+    from orbslam2_tpu_torch import kernels
+
+    cpu = _stereo_match_on("cpu")()
+    match = _stereo_match_on(device)
+    before = kernels.launch_counts["hamming"]
+    gpu = match()
+    assert kernels.launch_counts["hamming"] == before + 1
+    gd, cd = gpu.depth.cpu(), cpu.depth
+    assert int(((gd > 0) != (cd > 0)).sum()) <= 0.01 * int((cd > 0).sum())
+    both = (gd > 0) & (cd > 0)
+    assert int(both.sum()) > 300
+    assert float((gpu.u_right.cpu() - cpu.u_right)[both].abs().max()) <= 1e-3
+    assert float(((gd - cd).abs() / cd)[both].max()) <= 1e-4
+
+
+def test_stereo_match_and_median_read_nothing_on_host(device):
+    """After a first call, which builds K1 and the pyramid's level table,
+    the stereo match and the mono initialization's median run with no
+    host read (CUDA sync debug mode raises on one)."""
+    from orbslam2_tpu_torch.pipeline.tracking import _nanmedian
+
+    match = _stereo_match_on(device)
+    match()
+    x = torch.tensor([3.0, float("nan"), 1.0, 2.0, 5.0, float("nan")], device=device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = match()
+        med = _nanmedian(x)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert int((out.depth > 0).sum()) > 300
+    assert float(med) == 2.5
+
+
+def test_initialize_card_matches_cpu(device):
+    """The H/F initializer on the card against the CPU, fed the same
+    minimal sets: success, model and inliers equal, T21 to 1e-4."""
+    from orbslam2_tpu_torch import config
+    from orbslam2_tpu_torch.geometry import camera, se3
+    from orbslam2_tpu_torch.solvers import initializer
+
+    cam = config.CameraConfig(fx=480.0, fy=480.0, cx=319.5, cy=239.5)
+    rng = np.random.default_rng(0)
+    n = 300
+    pw = torch.from_numpy(np.c_[rng.uniform(-3, 3, n), rng.uniform(-2, 2, n),
+                                rng.uniform(3, 10, n)].astype(np.float32))
+    T2 = se3.exp_se3(torch.tensor([0.3, 0.02, 0.05, 0.01, 0.03, 0.005]))
+    K = camera.Intrinsics.from_config(cam, "cpu")
+    uv1 = camera.project(pw, K) + torch.from_numpy(rng.normal(0, 0.5, (n, 2)).astype(np.float32))
+    uv2 = camera.project(se3.apply(T2, pw), K)
+    uv2[:40] += torch.from_numpy(rng.uniform(30, 90, (40, 2)).astype(np.float32))
+    mask = torch.ones(n, dtype=torch.bool)
+    samples = initializer.draw_init_samples(mask, 256, torch.Generator().manual_seed(0))
+    cpu = initializer.initialize(uv1, uv2, mask, K, samples)
+    gpu = initializer.initialize(uv1.to(device), uv2.to(device), mask.to(device),
+                                 camera.Intrinsics.from_config(cam, device), samples)
+    assert bool(cpu.success) and bool(gpu.success)
+    assert bool(gpu.used_homography) == bool(cpu.used_homography)
+    assert torch.equal(gpu.good.cpu(), cpu.good)
+    assert float((gpu.T21.cpu() - cpu.T21).abs().max()) <= 1e-4
+
+
+def test_pose_kernel_all_mono_matches_plain(device):
+    """K2 on observations that are all 2-D (ur < 0), the monocular path's
+    case: Tcw to 1e-4 and equal inlier sets."""
+    from orbslam2_tpu_torch import config, kernels
+    from orbslam2_tpu_torch.geometry.camera import Intrinsics
+    from orbslam2_tpu_torch.solvers import cuda_pose_opt, pose_opt
+    from chip_smoke import make_pose_problem
+
+    K = Intrinsics.from_config(config.CameraConfig(fx=480.0, fy=480.0, cx=319.5, cy=239.5, bf=48.0),
+                               device)
+    obs = make_pose_problem(np.random.default_rng(3), device, n=1280, n_real=900, stereo_frac=0.0)
+    assert bool((obs.ur < 0).all())
+    for rounds, iters in [(2, 6), (3, 6), (4, 6)]:
+        before = kernels.launch_counts["pose_gn"]
+        got = cuda_pose_opt.pose_optimize_fast(torch.eye(4, device=device), obs, K, rounds, iters)
+        assert kernels.launch_counts["pose_gn"] == before + 1
+        ref = pose_opt.pose_optimize(torch.eye(4, device=device), obs, K, rounds, iters)
+        assert float((got.Tcw - ref.Tcw).abs().max()) <= 1e-4
+        assert torch.equal(got.inliers, ref.inliers)

@@ -48,6 +48,9 @@ from orbslam2_tpu_torch.ops import match as tmatch
 from orbslam2_tpu_torch.pipeline import fused as tfused
 from orbslam2_tpu_torch.pipeline import local_mapping as tlm
 from orbslam2_tpu_torch.slam_map import map_state as tms
+from tests.torch_threads import share_cores
+
+share_cores()
 
 CFG = SlamConfig(
     sensor=Sensor.RGBD,

@@ -50,8 +50,38 @@ def test_cuda_session_raises_without_gpu():
     ({"enable_mapping": False, "enable_loop_closing": True}, SlamConfig()),
     ({"enable_mapping": False, "enable_loop_closing": False},
      SlamConfig(tracking=TrackingConfig(pipeline_depth=1))),
-    ({"enable_mapping": False, "enable_loop_closing": False}, SlamConfig(sensor=Sensor.STEREO)),
-], ids=["mapping", "loop_closing", "pipelined", "stereo"])
+    # stereo and mono sessions are ported; pipelining them is not
+    ({"enable_mapping": True, "enable_loop_closing": False},
+     SlamConfig(sensor=Sensor.STEREO, tracking=TrackingConfig(pipeline_depth=1))),
+    ({"enable_mapping": True, "enable_loop_closing": False},
+     SlamConfig(sensor=Sensor.MONOCULAR, tracking=TrackingConfig(pipeline_depth=1))),
+], ids=["mapping", "loop_closing", "pipelined", "stereo", "mono_pipelined"])
 def test_unported_modes_raise(kwargs, cfg):
     with pytest.raises(NotImplementedError):
         System(cfg, device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("sensor", [Sensor.STEREO, Sensor.MONOCULAR])
+def test_session_constructs_for_sensor(sensor):
+    slam = System(SlamConfig(sensor=sensor), device="cpu", enable_loop_closing=False)
+    assert slam.cfg.sensor == sensor
+    assert slam.num_keyframes() == 0
+    with pytest.raises(NotImplementedError):
+        slam.activate_localization_mode()
+
+
+@pytest.mark.parametrize("sensor", [Sensor.RGBD, Sensor.STEREO, Sensor.MONOCULAR])
+def test_track_entry_must_match_sensor(sensor):
+    """Each session takes frames only through its own sensor's entry point."""
+    slam = System(SlamConfig(sensor=sensor), device="cpu", enable_loop_closing=False)
+    img = torch.zeros(8, 8)
+    calls = {
+        Sensor.RGBD: lambda: slam.track_rgbd(img, img),
+        Sensor.STEREO: lambda: slam.track_stereo(img, img),
+        Sensor.MONOCULAR: lambda: slam.track_monocular(img),
+    }
+    for other, call in calls.items():
+        if other != sensor:
+            with pytest.raises(ValueError, match=f"{other.name} frame in a {sensor.name}"):
+                call()
+    assert slam.results == []

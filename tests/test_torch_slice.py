@@ -11,6 +11,9 @@ from orbslam2_tpu.pipeline.system import System as JSystem
 from orbslam2_tpu.utils.evaluation import ate_rmse
 from orbslam2_tpu_torch.pipeline.system import System as TSystem
 from orbslam2_tpu_torch.pipeline.tracking import TrackState
+from tests.torch_threads import share_cores
+
+share_cores()
 
 CFG = SlamConfig(
     sensor=Sensor.RGBD,
