@@ -7,11 +7,13 @@ Phases, each printing its own lines; any failed check exits non-zero:
 1. environment: torch/CUDA versions, the card's name and power limit;
 2. build: compile the hand-written kernels (`orbslam2_tpu_torch/csrc`);
 3. K1 (Hamming distance) on the card against its plain PyTorch version,
-   exact, and both timed with CUDA events;
+   exact at ragged and empty shapes and on words of all zeros, all ones
+   and the sign bit alone; then timed at the tracking shapes;
 4. K2 (pose Gauss-Newton) on the card against its plain version, Tcw to
-   atol 1e-4 and equal inlier sets, at the RGB-D and stereo paths' 1024
-   slots with part of the observations stereo and at the mono path's 1280
-   slots with all of them 2-D, and both timed at each;
+   atol 1e-4 and equal inlier sets, its `num_inliers` equal to
+   `inliers.sum()`, at the RGB-D and stereo paths' 1024 slots with part
+   of the observations stereo and at the mono path's 1280 slots with all
+   of them 2-D; then timed at both;
 5. the tracking path: `System.track_rgbd` over 40 frames of the synthetic
    textured-room dolly at the 640x480 / 1000-feature bench configuration,
    mapping and loop closing off. Every frame must be tracked with ATE
@@ -43,11 +45,21 @@ Phases, each printing its own lines; any failed check exits non-zero:
    degrees. The monocular RANSAC draws come from one CPU generator, so
    both solve the same minimal sets.
 
+How a kernel is timed, at each shape: `ms` is its device time, 50
+launches into preallocated outputs captured in one CUDA graph and the
+replay timed with CUDA events (median of 7 replays, divided by 50), so no
+host work lies inside the window; `call_ms` is its wrapper's time per call
+with CUDA events around each call (the host cost the path pays);
+`plain_ms` the plain version's; `library_ms` (K1 only) the device time of
+one fp16 `torch.addmm` computing the same distances, a yardstick the port
+never calls; `bound_ms` the larger of its bytes over 3.35 TB/s and its
+operations over the peak rate of their type.
+
 The launch counts are set to 0 just before each path is driven and read
-just after; the kernels line sums the four paths. The last two lines are
-a JSON object of the kernels' launch counts, errors and times, and the
-JSON result line. Exits non-zero, printing no result, when no CUDA device
-is available.
+just after; the kernels line sums the four paths and gives each path's
+counts. The last two lines are that JSON object of the kernels' launch
+counts, errors and times, and the JSON result line. Exits non-zero,
+printing no result, when no CUDA device is available.
 """
 
 from __future__ import annotations
@@ -62,6 +74,13 @@ import time
 import numpy as np
 import torch
 
+GRAPH_LAUNCHES = 50       # kernel launches captured in one CUDA graph
+GRAPH_REPLAYS = 7         # device time: median over replays of replay time / launches
+L2_BYTES = 50 * 2**20
+PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA's data sheet, at 700 W)
+PEAK_INT8_OPS = 1979e12     # dense int8 tensor cores
+PEAK_FP32_FLOPS = 67e12     # float32 outside the tensor cores
+K2_FLOPS_PER_EDGE = 200     # one observation's residual, Jacobian and 27 sums, per iteration
 TOL_K2_TCW = 1e-4         # float32 GN with another summation order than torch's
 ATE_LIMIT_M = 0.01        # the reference on the CPU gives 0.0041 m here
 N_FRAMES = 40             # without mapping the first keyframe's points stay in view to ~70
@@ -95,9 +114,12 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int = 20) -> float:
-    """Median milliseconds of `fn` over `reps` runs, CUDA events, after
-    one warm-up run."""
+def call_ms(fn, reps: int = 20) -> float:
+    """Median milliseconds of one call of `fn` (the wrapper: its checks,
+    allocations and launches, host enqueue included) over `reps` calls,
+    CUDA events around each, after one warm-up call. On an idle card the
+    device waits inside the window for the host, so this is the cost the
+    host-bound path pays per call, not the kernel's device time."""
     fn()
     times = []
     for _ in range(reps):
@@ -111,36 +133,141 @@ def time_ms(fn, reps: int = 20) -> float:
     return statistics.median(times)
 
 
+def device_ms(launch) -> float:
+    """Device milliseconds of one launch: GRAPH_LAUNCHES calls of
+    `launch(i)` captured in one CUDA graph, the graph's replay timed with
+    CUDA events and divided by the launch count, median of GRAPH_REPLAYS
+    replays. The host enqueues nothing inside the window. `launch(i)`
+    writes into preallocated outputs (large ones cycled by `i`, see
+    `copies`)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        launch(0)  # lazy initialisation (cuBLAS workspace) off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(GRAPH_LAUNCHES):
+            launch(i)
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(GRAPH_REPLAYS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / GRAPH_LAUNCHES)
+    return statistics.median(times)
+
+
+def copies(out_bytes: int) -> int:
+    """Output buffers to cycle through so that one graph's launches write
+    at least twice the L2 cache: the stores then reach device memory, as
+    the bound assumes, rather than stay in L2."""
+    return max(1, min(GRAPH_LAUNCHES, -(-2 * L2_BYTES // max(out_bytes, 1))))
+
+
+def bound_ms(n_bytes: float, ops: float, peak_ops: float) -> tuple[float, str]:
+    """The least time the card could take: bytes over the memory rate or
+    operations over the peak rate of their type, whichever is larger."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, ops / peak_ops
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
 def rand_desc(rng, n: int, device) -> torch.Tensor:
     a = rng.integers(0, 2**32, (n, 8), dtype=np.uint32).view(np.int32)
     return torch.from_numpy(a).to(device)
+
+
+def edge_descs(rng, n: int, device) -> torch.Tensor:
+    """Random descriptors whose first rows are the words a ±1 expansion
+    could get wrong: all zeros, all ones, only the sign bit, all but the
+    sign bit, only bit 0."""
+    d = rng.integers(0, 2**32, (n, 8), dtype=np.uint32)
+    for i, w in enumerate([0, 0xFFFFFFFF, 0x80000000, 0x7FFFFFFF, 1][:n]):
+        d[i] = w
+    return torch.from_numpy(d.view(np.int32)).to(device)
+
+
+def pm1_fp16(d: torch.Tensor) -> torch.Tensor:
+    """[N, 8] int32 words -> [N, 256] fp16 ±1 (bit j of word w at column
+    32 w + j): the operand of `distance_matrix_mxu`'s formulation."""
+    shifts = torch.arange(32, device=d.device, dtype=torch.int32)
+    bits = (d[:, :, None] >> shifts) & 1
+    return (2 * bits - 1).reshape(d.shape[0], 256).to(torch.float16)
+
+
+def time_k1(a, b, label: str) -> dict:
+    """K1 at one shape: exact against its plain version and the library
+    yardstick; then its device time, its wrapper's time per call, the
+    plain version's time, the yardstick's device time and the bound."""
+    from orbslam2_tpu_torch.ops import cuda_hamming, hamming
+
+    n, m = a.shape[0], b.shape[0]
+    got = cuda_hamming.distance_matrix_cuda(a, b)
+    if not torch.equal(got, hamming.distance_matrix(a, b)):
+        fail(f"K1 {n}x{m} differs from the plain version")
+    # yardstick: d = 128 - <sa, sb> / 2 as one fp16 addmm on the tensor
+    # cores, exact since every value is an integer of at most 256
+    sa, sb_t = pm1_fp16(a), pm1_fp16(b).t().contiguous()
+    bias = torch.full((1, m), 128.0, dtype=torch.float16, device=a.device)
+    if not torch.equal(torch.addmm(bias, sa, sb_t, alpha=-0.5).to(torch.int32), got):
+        fail(f"K1 {n}x{m}: the fp16 addmm yardstick differs from the kernel")
+    outs = [torch.empty((n, m), dtype=torch.int32, device=a.device)
+            for _ in range(copies(4 * n * m))]
+    ms = device_ms(lambda i: cuda_hamming.launch(a, b, outs[i % len(outs)]))
+    outs = [torch.empty((n, m), dtype=torch.float16, device=a.device)
+            for _ in range(copies(2 * n * m))]
+    lib_ms = device_ms(lambda i: torch.addmm(bias, sa, sb_t, alpha=-0.5,
+                                             out=outs[i % len(outs)]))
+    del outs
+    wrapper_ms = call_ms(lambda: cuda_hamming.distance_matrix_cuda(a, b))
+    plain_ms = call_ms(lambda: hamming.distance_matrix(a, b))
+    bnd, by = bound_ms(32 * (n + m) + 4 * n * m, 2 * 256 * n * m, PEAK_INT8_OPS)
+    print(f"K1 {n}x{m} ({label}): exact; device {ms:.5f} ms, wrapper {wrapper_ms:.5f} ms/call, "
+          f"plain {plain_ms:.4f} ms, fp16 addmm {lib_ms:.5f} ms, bound {bnd:.5f} ms ({by}), "
+          f"{bnd / ms:.1%} of it", flush=True)
+    return {"shape": f"{n}x{m}", "ms": ms, "call_ms": wrapper_ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bound_ms": bnd, "bound_by": by}
 
 
 def check_k1(device) -> dict:
     from orbslam2_tpu_torch.ops import cuda_hamming, hamming
 
     rng = np.random.default_rng(0)
-    timed = {}
-    for n, m in [(1024, 1024), (4096, 1024), (100, 300), (1, 1)]:
-        a, b = rand_desc(rng, n, device), rand_desc(rng, m, device)
+    # ragged edges of the tiles, the empty cases, and the words a ±1
+    # expansion could get wrong
+    for n, m in [(1, 1), (100, 300), (1023, 1025), (129, 7), (5, 130), (0, 64), (64, 0)]:
+        a, b = edge_descs(rng, n, device), edge_descs(rng, m, device)
         got = cuda_hamming.distance_matrix_cuda(a, b)
         ref = hamming.distance_matrix(a, b)
         torch.cuda.synchronize()
-        if not torch.equal(got, ref):
+        if got.shape != (n, m) or not torch.equal(got, ref):
             fail(f"K1 {n}x{m}: {int((got != ref).sum())} entries differ from the plain version")
         print(f"K1 {n}x{m}: exact", flush=True)
-        if n >= 1024:
-            k = time_ms(lambda: cuda_hamming.distance_matrix_cuda(a, b))
-            p = time_ms(lambda: hamming.distance_matrix(a, b))
-            timed[(n, m)] = (k, p)
-            print(f"K1 {n}x{m}: kernel {k:.4f} ms, plain {p:.4f} ms (median of 20)", flush=True)
-    k, p = timed[(4096, 1024)]
+    ones = torch.full((3, 8), -1, dtype=torch.int32, device=device)
+    zeros = torch.zeros((2, 8), dtype=torch.int32, device=device)
+    d = cuda_hamming.distance_matrix_cuda(torch.cat([ones, zeros]), torch.cat([zeros, ones]))
+    want = torch.tensor([[256, 256, 0, 0, 0]] * 3 + [[0, 0, 256, 256, 256]] * 2,
+                        dtype=torch.int32, device=device)
+    if not torch.equal(d, want):
+        fail(f"K1 all ones against all zeros: {d.tolist()}")
+    print("K1 all ones / all zeros: distances 256 and 0", flush=True)
+    shapes = {}
+    for n, m in [(1024, 1024), (4096, 1024)]:
+        t = time_k1(rand_desc(rng, n, device), rand_desc(rng, m, device), "tracking")
+        shapes[t["shape"]] = t
+    main = shapes["4096x1024"]
     return {"name": "hamming_distance_matrix", "route": "cuda",
             "source": "orbslam2_tpu_torch/csrc/hamming.cu",
-            "replaces": "orbslam2_tpu/ops/pallas_hamming.py:55",
-            "max_abs_err": 0, "ms": k, "plain_ms": p,
-            "shape": "4096x1024", "ms_1024x1024": timed[(1024, 1024)][0],
-            "plain_ms_1024x1024": timed[(1024, 1024)][1]}
+            "replaces": "orbslam2_tpu/ops/pallas_hamming.py:55", "max_abs_err": 0,
+            **{k: main[k] for k in ("shape", "ms", "call_ms", "plain_ms", "library_ms",
+                                    "bound_ms", "bound_by")},
+            "shapes": shapes}
 
 
 def make_pose_problem(rng, device, n=1024, n_real=700, n_out=80, noise=0.5, stereo_frac=0.6):
@@ -200,26 +327,51 @@ def check_k2(device) -> dict:
             same = torch.equal(got.inliers, ref.inliers)
             chi2_err = float((got.chi2 - ref.chi2)[obs.mask].abs().max())
             label = f"K2 N={n} stereo {stereo_frac:.0%} {rounds}x{iters}"
+            if not (got.num_inliers.dtype == ref.num_inliers.dtype and got.num_inliers.dim() == 0
+                    and int(got.num_inliers) == int(got.inliers.sum())):
+                fail(f"{label}: num_inliers {got.num_inliers} is not inliers.sum()")
             print(f"{label}: Tcw max err {err:.3e}, inliers equal {same}"
                   f" ({int(got.num_inliers)}), chi2 max err {chi2_err:.3e}", flush=True)
             if not (err <= TOL_K2_TCW and same):
                 fail(f"{label} disagrees with the plain version")
             worst = max(worst, err)
-    timed = {}
+    shapes = {}
     for n, n_real, stereo_frac in [(1024, 700, 0.6), (1280, 900, 0.0)]:
         obs = make_pose_problem(np.random.default_rng(1), device, n=n, n_real=n_real,
                                 stereo_frac=stereo_frac)
-        k = time_ms(lambda: cuda_pose_opt.pose_optimize_cuda(T0, obs, K, rounds=4, iters=6))
-        p = time_ms(lambda: pose_opt.pose_optimize(T0, obs, K, rounds=4, iters=6))
-        timed[n] = (k, p)
-        print(f"K2 N={n} stereo {stereo_frac:.0%} 4x6: kernel {k:.4f} ms, plain {p:.4f} ms "
-              f"(median of 20)", flush=True)
-    k, p = timed[1024]
+        t = time_k2(T0, obs, K, rounds=4, iters=6)
+        t["shape"] = f"N={n}, {stereo_frac:.0%} stereo, 4x6"
+        shapes[t["shape"]] = t
+        print(f"K2 {t['shape']}: device {t['ms']:.5f} ms, wrapper {t['call_ms']:.5f} ms/call, "
+              f"plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.6f} ms ({t['bound_by']})",
+              flush=True)
+    main = next(iter(shapes.values()))
     return {"name": "pose_gn", "route": "cuda",
             "source": "orbslam2_tpu_torch/csrc/pose_gn.cu",
-            "replaces": "orbslam2_tpu/solvers/pallas_pose_opt.py:242",
-            "max_abs_err": worst, "ms": k, "plain_ms": p, "shape": "N=1024, 4x6",
-            "ms_mono_1280": timed[1280][0], "plain_ms_mono_1280": timed[1280][1]}
+            "replaces": "orbslam2_tpu/solvers/pallas_pose_opt.py:242", "max_abs_err": worst,
+            **{k: main[k] for k in ("shape", "ms", "call_ms", "plain_ms", "bound_ms",
+                                    "bound_by")},
+            "library_ms": None, "shapes": shapes}
+
+
+def time_k2(T0, obs, K, rounds: int, iters: int) -> dict:
+    """K2 on one problem: its device time, its wrapper's time per call,
+    the plain version's time and the bound. No single PyTorch call
+    computes the schedule, so there is no library yardstick."""
+    from orbslam2_tpu_torch.solvers import cuda_pose_opt, pose_opt
+
+    r = cuda_pose_opt.pose_optimize_cuda(T0, obs, K, rounds=rounds, iters=iters)
+    outs = (r.Tcw, r.inliers, r.chi2, r.num_inliers)
+    ms = device_ms(lambda i: cuda_pose_opt.launch(T0, obs, K.pinhole, rounds, iters, *outs))
+    wrapper_ms = call_ms(lambda: cuda_pose_opt.pose_optimize_cuda(T0, obs, K, rounds, iters))
+    plain_ms = call_ms(lambda: pose_opt.pose_optimize(T0, obs, K, rounds, iters))
+    n, edges = obs.pw.shape[0], int(obs.mask.sum())
+    # each slot's 29 input bytes read once, its inlier flag and chi2
+    # written once; every real observation in every iteration
+    bnd, by = bound_ms(29 * n + 5 * n, K2_FLOPS_PER_EDGE * edges * rounds * iters,
+                       PEAK_FP32_FLOPS)
+    return {"ms": ms, "call_ms": wrapper_ms, "plain_ms": plain_ms, "bound_ms": bnd,
+            "bound_by": by}
 
 
 def bench_config(width: int = 640, height: int = 480, features: int = 1000,
@@ -336,7 +488,7 @@ def check_main_path(device) -> dict:
     for name, n in launches.items():
         if n < 3 * steady:
             fail(f"main path launched {name} {n} times, fewer than 3 per frame")
-    return {"launches": launches, "ate_m": ate, "fps": fps}
+    return {"launches": launches, "ate_m": ate, "fps": fps, "frames": N_FRAMES}
 
 
 def pose_gaps(pa, pb):
@@ -473,25 +625,15 @@ def check_mapping_path(device) -> dict:
     for name, n in launches.items():
         if n < 3 * (MAP_FRAMES - 1):
             fail(f"mapping path launched {name} {n} times, fewer than 3 per frame")
-    return {"launches": launches, "ate_m": ate, "fps": fps,
-            "union_rows": int(np.median(probe.union_rows)), "slots": cfg.orb.feature_slots}
+    return {"launches": launches, "ate_m": ate, "fps": fps, "frames": MAP_FRAMES,
+            "union_rows": int(np.median(probe.union_rows)), "slots": cfg.orb.feature_slots,
+            "k1_per_keyframe_step": probe.k1_per_step}
 
 
 def time_k1_at(device, rows: int, cols: int, label: str) -> dict:
-    """K1 against its plain version at a shape a path launched: exact, and
-    both timed."""
-    from orbslam2_tpu_torch.ops import cuda_hamming, hamming
-
+    """K1 at a shape a path launched, as `time_k1`."""
     rng = np.random.default_rng(1)
-    a, b = rand_desc(rng, rows, device), rand_desc(rng, cols, device)
-    got = cuda_hamming.distance_matrix_cuda(a, b)
-    if not torch.equal(got, hamming.distance_matrix(a, b)):
-        fail(f"K1 {rows}x{cols} differs from the plain version")
-    k = time_ms(lambda: cuda_hamming.distance_matrix_cuda(a, b))
-    p = time_ms(lambda: hamming.distance_matrix(a, b))
-    print(f"K1 {rows}x{cols} ({label.replace('_', ' ')}): exact; kernel {k:.4f} ms, "
-          f"plain {p:.4f} ms (median of 20)", flush=True)
-    return {f"shape_{label}": f"{rows}x{cols}", f"ms_{label}": k, f"plain_ms_{label}": p}
+    return time_k1(rand_desc(rng, rows, device), rand_desc(rng, cols, device), label)
 
 
 def check_stereo_path(device) -> dict:
@@ -535,7 +677,8 @@ def check_stereo_path(device) -> dict:
         fail(f"stereo path: K1 launches per stereo match {probe.per_call}")
     if launches["pose_gn"] < 3 * (MAP_FRAMES - 1):
         fail(f"stereo path launched pose_gn {launches['pose_gn']} times, fewer than 3 per frame")
-    return {"launches": launches, "ate_m": ate, "fps": fps}
+    return {"launches": launches, "ate_m": ate, "fps": fps, "frames": MAP_FRAMES,
+            "k1_per_stereo_match": sorted(set(probe.per_call))}
 
 
 def first_tracked(tracked) -> int:
@@ -578,7 +721,8 @@ def check_mono_path(device) -> dict:
         fail(f"mono path: K1 launches per initialization search {probe.per_call}")
     if launches["pose_gn"] < 3 * (MONO_FRAMES - init - 1):
         fail(f"mono path launched pose_gn {launches['pose_gn']} times, fewer than 3 per frame")
-    return {"launches": launches, "ate": ate, "fps": fps, "search_rows": probe.rows[-1],
+    return {"launches": launches, "ate": ate, "fps": fps, "frames": MONO_FRAMES,
+            "k1_per_init_search": probe.per_call, "search_rows": probe.rows[-1],
             "slots": cfg.orb.feature_slots}
 
 
@@ -627,12 +771,14 @@ def main() -> None:
     main_path = check_main_path(device)
     check_small_cpu_agreement(device, small_config(), 6, "small session", mapping=False)
     mapping = check_mapping_path(device)
-    k1.update(time_k1_at(device, mapping["union_rows"], mapping["slots"], "union_fuse"))
+    t = time_k1_at(device, mapping["union_rows"], mapping["slots"], "union fuse")
+    k1["shapes"][t["shape"]] = t
     check_small_cpu_agreement(device, small_config(), SMALL_MAP_FRAMES, "small mapping session",
                               expect_kfs=SMALL_MAP_KFS)
     stereo_path = check_stereo_path(device)
     mono_path = check_mono_path(device)
-    k1.update(time_k1_at(device, mono_path["search_rows"], mono_path["slots"], "mono_search"))
+    t = time_k1_at(device, mono_path["search_rows"], mono_path["slots"], "mono search")
+    k1["shapes"][t["shape"]] = t
     check_small_cpu_agreement(device, stereo_config(small_config()), SMALL_MAP_FRAMES,
                               "small stereo session")
     check_small_cpu_agreement(device, mono_config(), SMALL_MONO_FRAMES, "small mono session")
@@ -640,8 +786,19 @@ def main() -> None:
     if "jax" in sys.modules:
         fail("jax was imported")
     paths = (main_path, mapping, stereo_path, mono_path)
-    k1["launches"] = sum(p["launches"]["hamming"] for p in paths)
-    k2["launches"] = sum(p["launches"]["pose_gn"] for p in paths)
+    names = ("rgbd_tracking", "rgbd_mapping", "stereo_mapping", "mono_mapping")
+    for k, key in ((k1, "hamming"), (k2, "pose_gn")):
+        k["launches"] = sum(p["launches"][key] for p in paths)
+        k["launches_per_path"] = {name: {"launches": p["launches"][key], "frames": p["frames"]}
+                                  for name, p in zip(names, paths)}
+    per = k1["launches_per_path"]
+    per["rgbd_mapping"]["per_keyframe_step"] = mapping["k1_per_keyframe_step"]
+    per["stereo_mapping"]["per_stereo_match"] = stereo_path["k1_per_stereo_match"]
+    per["mono_mapping"]["per_init_search"] = mono_path["k1_per_init_search"]
+    for name, p in zip(names, paths):
+        print(f"{name}: launches per frame, K1 {p['launches']['hamming'] / p['frames']:.2f}, "
+              f"K2 {p['launches']['pose_gn'] / p['frames']:.2f} ({p['frames']} frames)",
+              flush=True)
     print(f"total: {time.perf_counter() - t_start:.1f} s from the build to the last phase",
           flush=True)
     print(card, flush=True)

@@ -61,8 +61,8 @@ def frame_from_numpy(fields: Mapping, device) -> FrameData:
 
 
 def intrinsics_from_numpy(fields: Mapping, device) -> Intrinsics:
-    return Intrinsics(**{name: to_tensor(fields[name], device).to(torch.float32)
-                         for name in Intrinsics._fields})
+    return Intrinsics.of(**{name: to_tensor(fields[name], device).to(torch.float32)
+                            for name in ("fx", "fy", "cx", "cy", "dist", "bf")})
 
 
 def pose_observations_from_numpy(fields: Mapping, device) -> PoseObservations:

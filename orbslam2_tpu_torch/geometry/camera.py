@@ -11,25 +11,32 @@ from typing import NamedTuple
 
 import torch
 
-from orbslam2_tpu.config import CameraConfig
+from orbslam2_tpu_torch.config import CameraConfig
 
 
 class Intrinsics(NamedTuple):
-    """Intrinsics as 0-d device tensors (static per session)."""
+    """Intrinsics as 0-d device tensors (static per session), and the
+    pinhole ones packed once into the [5] tensor K2 reads."""
 
     fx: torch.Tensor
     fy: torch.Tensor
     cx: torch.Tensor
     cy: torch.Tensor
-    dist: torch.Tensor  # [5] = k1, k2, p1, p2, k3
-    bf: torch.Tensor    # baseline * fx (stereo)
+    dist: torch.Tensor     # [5] = k1, k2, p1, p2, k3
+    bf: torch.Tensor       # baseline * fx (stereo)
+    pinhole: torch.Tensor  # [5] = fx, fy, cx, cy, bf
+
+    @classmethod
+    def of(cls, fx, fy, cx, cy, dist, bf) -> "Intrinsics":
+        """From the six reference fields (0-d tensors and [5] dist)."""
+        return cls(fx, fy, cx, cy, dist, bf, torch.stack([fx, fy, cx, cy, bf]))
 
     @classmethod
     def from_config(cls, cam: CameraConfig, device, dtype=torch.float32) -> "Intrinsics":
         def scalar(v):
             return torch.tensor(v, dtype=dtype, device=device)
 
-        return cls(
+        return cls.of(
             fx=scalar(cam.fx),
             fy=scalar(cam.fy),
             cx=scalar(cam.cx),

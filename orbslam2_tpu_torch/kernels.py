@@ -41,6 +41,10 @@ NVCC_FLAGS = (
 # kernel and nowhere else. Callers reset the counts by assigning 0.
 launch_counts = {"hamming": 0, "pose_gn": 0}
 
+# The most observation slots one K2 launch takes (csrc/pose_gn.cu: ten a
+# thread, 256 threads); `library()` checks it against the kernel's.
+POSE_GN_MAX_SLOTS = 2560
+
 _lib: ctypes.CDLL | None = None
 build_log = ""          # nvcc's output (ptxas register/spill report)
 build_seconds = 0.0
@@ -92,8 +96,13 @@ def library() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.hamming_distance_matrix.argtypes = [p, p, p, i, i, p]
         lib.hamming_distance_matrix.restype = i
-        lib.pose_gn.argtypes = [p, p, p, p, p, p, p, i, i, i, p, p, p, p]
+        lib.pose_gn.argtypes = [p, p, p, p, p, p, p, i, i, i, p, p, p, p, p]
         lib.pose_gn.restype = i
+        lib.pose_gn_max_slots.argtypes = []
+        lib.pose_gn_max_slots.restype = i
+        if lib.pose_gn_max_slots() != POSE_GN_MAX_SLOTS:
+            raise RuntimeError(f"pose_gn takes {lib.pose_gn_max_slots()} slots, "
+                               f"not POSE_GN_MAX_SLOTS = {POSE_GN_MAX_SLOTS}")
         _lib = lib
     return _lib
 

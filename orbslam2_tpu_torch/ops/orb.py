@@ -24,7 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from orbslam2_tpu.config import OrbConfig
+from orbslam2_tpu_torch.config import OrbConfig
 from orbslam2_tpu_torch.ops import fast, patches, pyramid
 
 _PATTERN_RADIUS = 12.5

@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from orbslam2_tpu.config import OrbConfig
+from orbslam2_tpu_torch.config import OrbConfig
 
 
 def level_scales(orb: OrbConfig) -> list[float]:

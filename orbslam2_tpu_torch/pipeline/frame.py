@@ -12,7 +12,7 @@ from typing import NamedTuple
 
 import torch
 
-from orbslam2_tpu.config import SlamConfig
+from orbslam2_tpu_torch.config import SlamConfig
 from orbslam2_tpu_torch.geometry import camera as cam_geo
 from orbslam2_tpu_torch.ops import orb, pyramid, stereo
 

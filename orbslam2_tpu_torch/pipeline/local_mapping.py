@@ -19,7 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from orbslam2_tpu.config import SlamConfig
+from orbslam2_tpu_torch.config import SlamConfig
 from orbslam2_tpu_torch.geometry import camera as cam_geo
 from orbslam2_tpu_torch.geometry import se3, triangulate
 from orbslam2_tpu_torch.ops import match

@@ -21,10 +21,10 @@ from typing import Optional
 import numpy as np
 import torch
 
-from orbslam2_tpu.config import SlamConfig, Sensor
-from orbslam2_tpu.io import trajectory as traj_io
-from orbslam2_tpu.utils.eventlog import EventLog
-from orbslam2_tpu_torch import convert
+from orbslam2_tpu_torch.config import SlamConfig, Sensor
+from orbslam2_tpu_torch import trajectory as traj_io
+from orbslam2_tpu_torch.eventlog import EventLog
+from orbslam2_tpu_torch import convert, kernels
 from orbslam2_tpu_torch.pipeline import fused
 from orbslam2_tpu_torch.pipeline.frame import FrameBuilder, FrameData
 from orbslam2_tpu_torch.pipeline.local_mapping import LocalMapper
@@ -63,6 +63,9 @@ class System:
         if cfg.tracking.pipeline_depth != 0:
             raise NotImplementedError("pipeline_depth > 0 is not ported")
         self.device = torch.device(device)
+        if self.device.type == "cuda" and cfg.orb.feature_slots > kernels.POSE_GN_MAX_SLOTS:
+            raise ValueError(f"feature_slots {cfg.orb.feature_slots}: the pose kernel takes at "
+                             f"most {kernels.POSE_GN_MAX_SLOTS}")
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("System(device='cuda'): no CUDA device is available")
         # the counterpart of the reference's "highest" matmul precision:

@@ -15,7 +15,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from orbslam2_tpu.config import SlamConfig, Sensor
+from orbslam2_tpu_torch.config import SlamConfig, Sensor
 from orbslam2_tpu_torch.geometry import camera as cam_geo
 from orbslam2_tpu_torch.geometry import se3
 from orbslam2_tpu_torch.ops import match

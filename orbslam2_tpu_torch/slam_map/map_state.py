@@ -17,7 +17,7 @@ import math
 
 import torch
 
-from orbslam2_tpu.config import MapConfig, OrbConfig
+from orbslam2_tpu_torch.config import MapConfig, OrbConfig
 from orbslam2_tpu_torch.ops import hamming
 
 

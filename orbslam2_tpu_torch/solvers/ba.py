@@ -8,10 +8,11 @@ reduced camera system is a dense [C, C, 6, 6] array solved as one
 
 The reference accumulates the reduced system with one-hot matmuls and, for
 large problems, a chunked scan: both work around slow TPU scatters. Here
-the accumulation is `index_add_` into the [C, C, 6, 6] system,
-unchunked. On the CPU its sums run in index order; on the card they use
-atomics, so their order, and the last bits of the result, change from
-run to run.
+the accumulation is a segment sum into the [C, C, 6, 6] system,
+unchunked, in a fixed order: the edges' targets are sorted (stably) once
+per problem and each target's terms are added in that order
+(`torch.segment_reduce`, no atomics). A run on the card therefore gives
+the same bits every time, as a run on the CPU does.
 
 Conventions: residual r = measured - predicted; normal equations
 (J^T W J) d = -J^T W r; cameras update as exp(dx) * Tcw. The LM accept /
@@ -58,6 +59,65 @@ def _cam_index(prob: BAProblem) -> torch.Tensor:
     """obs_cam clamped into [0, C): invalid slots may hold any value, and
     the reference's gathers clamp out-of-range indices."""
     return torch.clamp(prob.obs_cam, 0, prob.cam_Tcw.shape[0] - 1).to(torch.int64)
+
+
+class _Segments(NamedTuple):
+    """A fixed-order sum of rows into targets: `order` sorts the rows by
+    target, stably; `lengths` counts the rows of each of the `n_targets`
+    targets, then of as many spare segments that hold the left-out rows."""
+
+    order: torch.Tensor
+    lengths: torch.Tensor
+    n_targets: int
+
+
+def _segments(target: torch.Tensor, n_targets: int) -> _Segments:
+    """Rows whose target is `n_targets` or more sort last and are left out
+    of every sum: they are spread evenly over `n_targets` spare segments
+    (one segment of them all would be one long sequential sum), so the
+    lengths add up to the row count."""
+    order = torch.argsort(target, stable=True)
+    bounds = torch.arange(1, n_targets + 1, dtype=target.dtype, device=target.device)
+    ends = torch.searchsorted(target[order], bounds)
+    used = torch.diff(ends, prepend=ends.new_zeros(1))
+    rest = target.shape[0] - ends[-1]
+    spare = rest // n_targets + (torch.arange(n_targets, device=target.device)
+                                 < rest % n_targets)
+    return _Segments(order, torch.cat([used, spare]), n_targets)
+
+
+def _segment_sum(rows: torch.Tensor, seg: _Segments) -> torch.Tensor:
+    """[targets, ...] sums of `rows` [R, ...], each target's rows added in
+    their sorted order. The lengths add up to R by construction; `unsafe`
+    skips only the check of that, which would read them back to the
+    host."""
+    sums = torch.segment_reduce(rows[seg.order], "sum", lengths=seg.lengths, axis=0,
+                                unsafe=True)
+    return sums[:seg.n_targets]
+
+
+class _Assembly(NamedTuple):
+    """The reduced system's accumulations, planned once per problem (the
+    edges' cameras do not change between iterations)."""
+
+    system: _Segments  # each edge's Hcc into S[c, c], then each pair of
+                       # one point's edges into S[c_o, c_q]
+    grad: _Segments    # each edge's gradient into g_S[c]
+
+
+def _assembly(prob: BAProblem) -> _Assembly:
+    """Edges of empty observation slots (their terms are exactly zero: the
+    weight is 0) get the target past the end and are left out; clamped to
+    camera 0 they would all fall on S[0, 0], one long sequential sum."""
+    C = prob.cam_Tcw.shape[0]
+    cam = _cam_index(prob)
+    used = prob.obs_valid & prob.point_valid[:, None]
+    edge = torch.where(used, cam, C).reshape(-1)
+    pair = torch.where(used[:, :, None] & used[:, None, :],
+                       cam[:, :, None] * C + cam[:, None, :], C * C).reshape(-1)
+    return _Assembly(_segments(torch.cat([torch.where(edge < C, edge * (C + 1), C * C), pair]),
+                               C * C),
+                     _segments(edge, C))
 
 
 def _edge_terms(cam_Tcw, points, prob: BAProblem, K: Intrinsics, use_kernel: bool):
@@ -153,7 +213,7 @@ def inv3x3_det(h: torch.Tensor):
     return det, adj / safe[..., None, None]
 
 
-def _build_and_solve(r, Jc, Jp, w, prob: BAProblem, lam):
+def _build_and_solve(r, Jc, Jp, w, prob: BAProblem, lam, plan: _Assembly):
     """One damped Gauss-Newton step via the Schur complement. Returns
     (dx_cam [C, 6], dp [P, 3])."""
     C = prob.cam_Tcw.shape[0]
@@ -182,15 +242,10 @@ def _build_and_solve(r, Jc, Jp, w, prob: BAProblem, lam):
 
     # reduced camera system: S[c, c] += Hcc over each camera's edges, and
     # S[c_o, c_q] -= Y_o W_q^T over every pair of one point's edges
-    flat_cam = cam.reshape(-1)
-    S = torch.zeros(C * C, 6, 6, dtype=dt, device=dev)
-    S.index_add_(0, flat_cam * (C + 1), Hcc_blk.reshape(-1, 6, 6))
     cross = torch.einsum("poil,pqjl->poqij", Y, Wcp)         # [P,O,O,6,6]
-    pair = cam[:, :, None] * C + cam[:, None, :]             # [P,O,O]
-    S.index_add_(0, pair.reshape(-1), cross.reshape(-1, 6, 6), alpha=-1)
-    g_S = torch.zeros(C, 6, dtype=dt, device=dev).index_add_(
-        0, flat_cam, (gc_blk - g_red).reshape(-1, 6))
-    S = S.view(C, C, 6, 6)
+    S = _segment_sum(torch.cat([Hcc_blk.reshape(-1, 6, 6), -cross.reshape(-1, 6, 6)]),
+                     plan.system).view(C, C, 6, 6)
+    g_S = _segment_sum((gc_blk - g_red).reshape(-1, 6), plan.grad)
 
     # damping + fixed-camera masking: zero the rows/columns of fixed
     # cameras, identity on their diagonal blocks
@@ -224,11 +279,12 @@ def _lm_steps(prob: BAProblem, K: Intrinsics, cam, pts, lam, iters: int, use_ker
     edge evaluation per step: the candidate's terms score the step and, on
     accept, are the next linearization."""
     is_stereo = prob.obs_ur >= 0
+    plan = _assembly(prob)
     terms = _edge_terms(cam, pts, prob, K, use_kernel)
     cost = _robust_cost(terms[4], terms[5], use_kernel, is_stereo)
     for _ in range(iters):
         r, Jc, Jp, w, _, _ = terms
-        dx_cam, dp = _build_and_solve(r, Jc, Jp, w, prob, lam)
+        dx_cam, dp = _build_and_solve(r, Jc, Jp, w, prob, lam, plan)
         cam_new = se3.exp_se3(dx_cam) @ cam
         pts_new = pts + dp
         terms_new = _edge_terms(cam_new, pts_new, prob, K, use_kernel)

@@ -19,17 +19,22 @@ def device():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("n,m", [(1024, 1024), (4096, 1024), (100, 300), (1, 1)])
+@pytest.mark.parametrize("n,m", [(1024, 1024), (4096, 1024), (100, 300), (1, 1), (1023, 1025),
+                                 (2525, 1024), (1280, 1280), (0, 64), (64, 0)])
 def test_hamming_kernel_matches_plain(device, n, m):
+    """Exact at the paths' shapes, at ragged and empty ones, on rows of all
+    zeros, all ones, the sign bit alone and all but the sign bit (distances
+    0 to 256, words negative as int32)."""
     from orbslam2_tpu_torch import kernels
     from orbslam2_tpu_torch.ops import cuda_hamming, hamming
+    from chip_smoke import edge_descs
 
     rng = np.random.default_rng(n + m)
-    a = torch.from_numpy(rng.integers(0, 2**32, (n, 8), dtype=np.uint32).view(np.int32)).to(device)
-    b = torch.from_numpy(rng.integers(0, 2**32, (m, 8), dtype=np.uint32).view(np.int32)).to(device)
+    a, b = edge_descs(rng, n, device), edge_descs(rng, m, device)
     before = kernels.launch_counts["hamming"]
     got = cuda_hamming.distance_matrix(a, b)
-    assert kernels.launch_counts["hamming"] == before + 1
+    assert kernels.launch_counts["hamming"] == before + (1 if n and m else 0)
+    assert got.shape == (n, m) and got.dtype == torch.int32
     assert torch.equal(got, hamming.distance_matrix(a, b))
 
 
@@ -244,3 +249,76 @@ def test_pose_kernel_all_mono_matches_plain(device):
         ref = pose_opt.pose_optimize(torch.eye(4, device=device), obs, K, rounds, iters)
         assert float((got.Tcw - ref.Tcw).abs().max()) <= 1e-4
         assert torch.equal(got.inliers, ref.inliers)
+
+
+def _pose_case(device, n=1024, n_real=700, stereo_frac=0.6):
+    from orbslam2_tpu_torch import config
+    from orbslam2_tpu_torch.geometry.camera import Intrinsics
+    from chip_smoke import make_pose_problem
+
+    K = Intrinsics.from_config(config.CameraConfig(fx=480.0, fy=480.0, cx=319.5, cy=239.5, bf=48.0),
+                               device)
+    obs = make_pose_problem(np.random.default_rng(5), device, n=n, n_real=n_real,
+                            stereo_frac=stereo_frac)
+    return torch.eye(4, device=device), obs, K
+
+
+@pytest.mark.parametrize("n,n_real,stereo_frac", [(1024, 700, 0.6), (1280, 900, 0.0), (200, 150, 0.5)])
+def test_pose_kernel_counts_inliers_and_repeats(device, n, n_real, stereo_frac):
+    """K2 writes `num_inliers` itself: a 0-d tensor of the plain version's
+    dtype equal to `inliers.sum()`; two launches on the same inputs give
+    bit-equal outputs (no atomics, one fixed summation order)."""
+    from orbslam2_tpu_torch.solvers import cuda_pose_opt, pose_opt
+
+    T0, obs, K = _pose_case(device, n, n_real, stereo_frac)
+    first = cuda_pose_opt.pose_optimize_cuda(T0, obs, K, rounds=4, iters=6)
+    second = cuda_pose_opt.pose_optimize_cuda(T0, obs, K, rounds=4, iters=6)
+    ref = pose_opt.pose_optimize(T0, obs, K, rounds=4, iters=6)
+    assert first.num_inliers.dtype == ref.num_inliers.dtype and first.num_inliers.dim() == 0
+    assert int(first.num_inliers) == int(first.inliers.sum()) == int(ref.num_inliers)
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+
+
+def test_pose_kernel_wrapper_reads_nothing_on_host(device):
+    """After a first call, which builds and loads the library, the K2
+    wrapper launches its kernel with no host read (CUDA sync debug mode
+    raises on one) and nothing but the kernel: no stack of the intrinsics,
+    no separate sum of the inliers."""
+    from orbslam2_tpu_torch import kernels
+    from orbslam2_tpu_torch.solvers import cuda_pose_opt
+
+    T0, obs, K = _pose_case(device)
+    cuda_pose_opt.pose_optimize_fast(T0, obs, K, 4, 6)
+    torch.cuda.synchronize()
+    before = kernels.launch_counts["pose_gn"]
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            r = cuda_pose_opt.pose_optimize_fast(T0, obs, K, 4, 6)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    assert kernels.launch_counts["pose_gn"] == before + 1
+    kernels_run = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert kernels_run and all("pose_gn" in name for name in kernels_run), kernels_run
+    assert int(r.num_inliers) == int(r.inliers.sum())
+
+
+@pytest.mark.parametrize("stereo", [False, True], ids=["mono", "stereo"])
+def test_bundle_adjust_card_is_deterministic(device, stereo):
+    """The reduced system is summed in a fixed order (sorted targets, a
+    segment sum), not with atomics: the same BA twice on the card gives
+    bit-equal poses, points and costs."""
+    from orbslam2_tpu_torch import config
+    from orbslam2_tpu_torch.geometry.camera import Intrinsics
+    from orbslam2_tpu_torch.solvers import ba
+
+    K = Intrinsics.from_config(config.CameraConfig(fx=480.0, fy=480.0, cx=319.5, cy=239.5,
+                                                   bf=48.0), device)
+    prob = ba.BAProblem(*(x.to(device) for x in make_ba_problem(np.random.default_rng(7),
+                                                                stereo=stereo)))
+    first = ba.two_phase_bundle_adjust(prob, K)
+    second = ba.two_phase_bundle_adjust(prob, K)
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)

@@ -16,6 +16,7 @@ from orbslam2_tpu.utils.evaluation import ate_rmse
 from orbslam2_tpu_torch.pipeline.system import System as TSystem
 from orbslam2_tpu_torch.pipeline.tracking import TrackState
 from tests.torch_threads import share_cores
+from tests.torch_config import port_config
 
 share_cores()
 
@@ -42,7 +43,7 @@ def _run(slam, seq, n=N_FRAMES):
 def sessions():
     seq = synthetic.textured_sequence(n_frames=N_FRAMES, kind="forward", cam=CFG.camera)
     ref = JSystem(CFG, enable_mapping=True, enable_loop_closing=False)
-    port = TSystem(CFG, device="cpu", enable_mapping=True, enable_loop_closing=False)
+    port = TSystem(port_config(CFG), device="cpu", enable_mapping=True, enable_loop_closing=False)
     return seq, ref, _run(ref, seq), port, _run(port, seq)
 
 
@@ -100,7 +101,7 @@ def test_synchronous_keyframe_path_matches_reference():
 
     seq = synthetic.textured_sequence(n_frames=N_FRAMES, kind="forward", cam=CFG.camera)
     ref = JSystem(CFG, enable_mapping=True, enable_loop_closing=False)
-    port = TSystem(CFG, device="cpu", enable_mapping=True, enable_loop_closing=False)
+    port = TSystem(port_config(CFG), device="cpu", enable_mapping=True, enable_loop_closing=False)
     for i in range(N_FRAMES):
         img, depth = seq.frame(i)
         ref._track(ref.builder.rgbd(jnp.asarray(img), jnp.asarray(depth), i / 30.0))
@@ -129,7 +130,7 @@ def small_cfg():
 def test_rgbd_tracking_ate():
     cfg = small_cfg()
     seq = synthetic.textured_sequence(n_frames=30, kind="forward", cam=cfg.camera)
-    slam = TSystem(cfg, device="cpu", enable_mapping=True, enable_loop_closing=False)
+    slam = TSystem(port_config(cfg), device="cpu", enable_mapping=True, enable_loop_closing=False)
     _, poses, tracked = _run(slam, seq, len(seq))
     assert slam.get_tracking_state() == TrackState.OK
     assert tracked.all(), f"lost tracking on {np.count_nonzero(~tracked)} frames"
@@ -146,7 +147,7 @@ def test_rgbd_exposure_drift():
     cfg = small_cfg()
     seq = synthetic.textured_sequence(n_frames=20, kind="forward", cam=cfg.camera,
                                       exposure_drift=0.10)
-    slam = TSystem(cfg, device="cpu", enable_mapping=True, enable_loop_closing=False)
+    slam = TSystem(port_config(cfg), device="cpu", enable_mapping=True, enable_loop_closing=False)
     _, poses, tracked = _run(slam, seq, len(seq))
     assert tracked.all()
     rmse = ate_rmse(poses, seq.poses, align=True)

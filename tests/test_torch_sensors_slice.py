@@ -54,6 +54,7 @@ from orbslam2_tpu_torch.pipeline.tracking import TrackState
 from orbslam2_tpu_torch.solvers import initializer as tinit
 from tests.test_torch_mapping_slice import CFG as RGBD_CFG
 from tests.torch_threads import share_cores
+from tests.torch_config import port_config
 
 share_cores()
 
@@ -161,7 +162,7 @@ def stereo_sessions():
     seq = synthetic.textured_sequence(n_frames=STEREO_FRAMES + 3, kind="forward",
                                       cam=STEREO_CFG.camera)
     ref = JSystem(STEREO_CFG, enable_mapping=True, enable_loop_closing=False)
-    port = TSystem(STEREO_CFG, device="cpu", enable_mapping=True, enable_loop_closing=False)
+    port = TSystem(port_config(STEREO_CFG), device="cpu", enable_mapping=True, enable_loop_closing=False)
     for i in range(STEREO_FRAMES):
         left, right, _ = seq.stereo(i)
         ref.track_stereo(left, right, timestamp=i / 30.0)
@@ -173,7 +174,7 @@ def stereo_sessions():
 def mono_sessions():
     seq = synthetic.textured_sequence(n_frames=MONO_FRAMES, kind="lateral", cam=MONO_CFG.camera)
     ref = JSystem(MONO_CFG, enable_mapping=True, enable_loop_closing=False)
-    port = TSystem(MONO_CFG, device="cpu", enable_mapping=True, enable_loop_closing=False)
+    port = TSystem(port_config(MONO_CFG), device="cpu", enable_mapping=True, enable_loop_closing=False)
     port.builder.extractor = ReferenceExtractor(MONO_CFG.orb)
     draw = ReferenceDraw(MONO_CFG.seed, MONO_CFG.solver.init_ransac_iters)
     port.tracker.draw_init_samples = draw
@@ -234,7 +235,7 @@ def test_kitti_export_matches_reference(stereo_sessions, tmp_path):
     _, ref, _ = stereo_sessions
     ref.save_map(str(tmp_path / "ref.npz"))
     ref.save_trajectory_kitti(str(tmp_path / "ref.txt"))
-    port = TSystem(STEREO_CFG, device="cpu", enable_loop_closing=False)
+    port = TSystem(port_config(STEREO_CFG), device="cpu", enable_loop_closing=False)
     port.load_map(str(tmp_path / "ref.npz"))
     port.tracker.trajectory = list(ref.tracker.trajectory)
     port.save_trajectory_kitti(str(tmp_path / "port.txt"))
@@ -253,7 +254,7 @@ def test_reference_map_loads_into_port_and_tracks_on(stereo_sessions, tmp_path):
     ref.save_map(path)
     with np.load(path) as z:
         saved = {k[4:]: z[k] for k in z.files}
-    fresh = TSystem(STEREO_CFG, device="cpu", enable_loop_closing=False)
+    fresh = TSystem(port_config(STEREO_CFG), device="cpu", enable_loop_closing=False)
     fresh.load_map(path)
     loaded = convert.map_state_to_numpy(fresh.map)
     assert loaded.keys() == saved.keys()
@@ -292,7 +293,7 @@ def test_port_map_loads_into_reference(mono_sessions, tmp_path):
 def test_load_map_with_bow_database_raises(tmp_path):
     path = str(tmp_path / "db.npz")
     np.savez(path, map_num_kf=np.int32(0), db_vectors=np.zeros((2, 3), np.float32))
-    slam = TSystem(STEREO_CFG, device="cpu", enable_loop_closing=False)
+    slam = TSystem(port_config(STEREO_CFG), device="cpu", enable_loop_closing=False)
     with pytest.raises(NotImplementedError, match="P11"):
         slam.load_map(path)
 
@@ -303,7 +304,7 @@ def test_stereo_tracking_ate():
 
     cfg = dataclasses.replace(small_cfg(), sensor=Sensor.STEREO)
     seq = synthetic.textured_sequence(n_frames=24, kind="forward", cam=cfg.camera)
-    slam = TSystem(cfg, device="cpu", enable_mapping=True, enable_loop_closing=False)
+    slam = TSystem(port_config(cfg), device="cpu", enable_mapping=True, enable_loop_closing=False)
     for i in range(len(seq)):
         left, right, _ = seq.stereo(i)
         slam.track_stereo(left, right, timestamp=i / 30.0)
@@ -327,7 +328,7 @@ def test_mono_tracking_ate():
         tracking=TrackingConfig(th_depth=100.0, mono_init_min_matches=50, kf_min_gap=2),
     )
     seq = synthetic.textured_sequence(n_frames=24, kind="lateral", cam=cfg.camera)
-    slam = TSystem(cfg, device="cpu", enable_mapping=True, enable_loop_closing=False)
+    slam = TSystem(port_config(cfg), device="cpu", enable_mapping=True, enable_loop_closing=False)
     for i in range(len(seq)):
         img, _ = seq.frame(i)
         slam.track_monocular(img, timestamp=i / 30.0)

@@ -12,6 +12,7 @@ from orbslam2_tpu.utils.evaluation import ate_rmse
 from orbslam2_tpu_torch.pipeline.system import System as TSystem
 from orbslam2_tpu_torch.pipeline.tracking import TrackState
 from tests.torch_threads import share_cores
+from tests.torch_config import port_config
 
 share_cores()
 
@@ -36,7 +37,7 @@ def _run(slam, seq):
 def sessions():
     seq = synthetic.textured_sequence(n_frames=N_FRAMES, kind="forward", cam=CFG.camera)
     ref = JSystem(CFG, enable_mapping=False, enable_loop_closing=False)
-    port = TSystem(CFG, device="cpu", enable_mapping=False, enable_loop_closing=False)
+    port = TSystem(port_config(CFG), device="cpu", enable_mapping=False, enable_loop_closing=False)
     return seq, ref, _run(ref, seq), port, _run(port, seq)
 
 

@@ -18,6 +18,7 @@ from orbslam2_tpu_torch.pipeline import fused as tfused
 from orbslam2_tpu_torch.pipeline import tracking as ttrk
 from orbslam2_tpu_torch.pipeline.frame import FrameBuilder as TFrameBuilder
 from orbslam2_tpu_torch.slam_map import map_state as tms
+from tests.torch_config import port_config
 
 CFG = SlamConfig(
     sensor=Sensor.RGBD,
@@ -60,7 +61,7 @@ def test_stereo_initialize_builds_the_same_map(ref):
     """add_keyframe / add_points / observations / covisibility: the port's
     initialization on the reference's frame 0 gives the reference's map."""
     builder = TFrameBuilder(CFG, "cpu")
-    tracker = ttrk.Tracker(CFG, builder, tms.allocate(CFG.map, CFG.orb, "cpu"))
+    tracker = ttrk.Tracker(port_config(CFG), builder, tms.allocate(CFG.map, CFG.orb, "cpu"))
     assert tracker.process(_port_frame(ref["f0"])).state == ttrk.TrackState.OK
     got = convert.map_state_to_numpy(tracker.map)
     for name, want in ref["map"].items():
