@@ -43,7 +43,30 @@ Phases, each printing its own lines; any failed check exits non-zero:
    the monocular path on the card and on the CPU: the same keyframes (and
    the same initialization frame), per-frame poses within 5 mm and 0.2
    degrees. The monocular RANSAC draws come from one CPU generator, so
-   both solve the same minimal sets.
+   both solve the same minimal sets;
+12. relocalization (loop closing on, the default, from here on): the first
+   34 frames of the dolly at bench.py's configuration, 3 black frames
+   (LOST), then frame 10 again until it relocalizes: within 3 frames, with
+   a translation error < 0.1 m to frame 10's ground truth, K1 and K2
+   launched in the relocalizing frame;
+13. the 640x480 orbit, bench.py's segment B (170 orbit frames and a
+   35-frame revisit, `th_depth` 130), with bench.py's loop-closer warm-up
+   at session start: the reference's first 8 keyframes (as far as the
+   card, the port on the CPU and the reference decide alike), no more
+   loops closed and frames lost than in the reference's own CPU run
+   (`tools/loop_reference_targets.py`), a Sim3 verification in the
+   revisit against a keyframe of the orbit's start, K1 in every
+   verification; it prints every keyframe's frame, every verification's
+   outcome, the warm-up's seconds and the first verification frame's ms;
+14. the 320x240 orbit of `test_orbit_loop_closes`: the same checks with
+   the reference's keyframes up to its correction, at least one loop
+   closed, ATE over the orbit's frames < 0.05 m;
+15. the 320x240 dolly with loop closing on (18 frames) and the
+   relocalization session at the CPU tests' 640x480 configuration on the
+   card and on the CPU: the same keyframes, database rows and
+   relocalization frame, the relocalized pose and the small session's
+   poses within 1e-5 m (the relocalization session's mapping frames
+   within 5e-5 m).
 
 How a kernel is timed, at each shape: `ms` is its device time, 50
 launches into preallocated outputs captured in one CUDA graph and the
@@ -56,7 +79,7 @@ never calls; `bound_ms` the larger of its bytes over 3.35 TB/s and its
 operations over the peak rate of their type.
 
 The launch counts are set to 0 just before each path is driven and read
-just after; the kernels line sums the four paths and gives each path's
+just after; the kernels line sums the seven paths and gives each path's
 counts. The last two lines are that JSON object of the kernels' launch
 counts, errors and times, and the JSON result line. Exits non-zero,
 printing no result, when no CUDA device is available.
@@ -66,6 +89,8 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import multiprocessing
+import os
 import statistics
 import subprocess
 import sys
@@ -99,6 +124,30 @@ MONO_INIT_BY = 6           # the reference initialises at frame 4
 MONO_ATE_LIMIT = 0.03      # scaled; the reference on the CPU gives 0.00735 m
 MONO_MIN_KFS, MONO_MIN_POINTS = 3, 300   # the reference: 3 and 727
 SMALL_MONO_FRAMES = 16
+RELOC_MAP_FRAMES, RELOC_BLACK, RELOC_REVISIT, RELOC_TRIES = 34, 3, 10, 3
+RELOC_ERR_M = 0.1
+ORBIT_FRAMES, ORBIT_REVISIT = 170, 35
+# the reference's own runs on the CPU, one JAX device, pipeline_depth 0
+# (tools/loop_reference_targets.py): loops closed, the frame of each
+# correction, frames lost, ATE over the tracked frames, and its first
+# keyframes' frames: as far as the card and the port on the CPU make the
+# same keyframe decisions (the 640x480 port on the CPU makes its 9th
+# keyframe at frame 69, the reference at 70; PERF.md)
+ORBIT640_REFERENCE = dict(loops_closed=1, loop_frames=[177], lost=1, ate=5.411249850657415,
+                          kf_prefix=[0, 2, 5, 10, 18, 27, 43, 56])
+ORBIT320_REFERENCE = dict(loops_closed=1, loop_frames=[173], lost=1, ate=0.18967547984200245,
+                          ate_orbit=0.020589229995152405,
+                          kf_prefix=[0, 2, 5, 9, 13, 17, 22, 27, 32, 37, 44, 49, 54, 59, 63, 66,
+                                     69, 73, 77, 80, 83, 86, 89, 92, 96, 100, 104, 108, 111, 114,
+                                     118, 124, 129, 133, 137, 141, 146, 150, 154, 159, 163, 167,
+                                     171])
+RELOC640_REFERENCE = dict(relocalized_at_try=0, t_err=0.003939959066388856)
+ORBIT_ATE_LIMIT_M = 0.05  # the orbit's frames alone; the reference on the CPU gives 0.0206 m (320x240)
+LOOP_CPU_DT_M = 1e-5       # the loop-closing session, and the relocalized frame
+# the relocalization session's frames before the blackout: tracking and
+# local BA at 640x480 drift 1.62e-5 m card against CPU by frame 19
+# (measured on an NVIDIA H100 80GB HBM3 at 700 W)
+RELOC_CPU_DT_M = 5e-5
 
 
 def fail(msg: str) -> None:
@@ -378,7 +427,8 @@ def bench_config(width: int = 640, height: int = 480, features: int = 1000,
                  slots: int = 1024, points: int = 16384, local_points: int = 4096,
                  keyframes: int = 96, ba_points: int = 4096, ba_local: int = 24,
                  ba_fixed: int = 16):
-    """bench.py's camera, ORB, map and local-BA sizes, synchronous."""
+    """bench.py's camera, ORB, map and local-BA sizes and its loop-closing
+    warm-up, synchronous."""
     from orbslam2_tpu_torch import config as c
 
     s = width / 640.0
@@ -394,13 +444,19 @@ def bench_config(width: int = 640, height: int = 480, features: int = 1000,
         solver=c.SolverConfig(ba_max_points=ba_points, local_ba_iters_first=3,
                               local_ba_iters_second=4, ba_max_local_kfs=ba_local,
                               ba_max_fixed_kfs=ba_fixed),
+        # bench.py:104: the correction chain runs once at session start
+        vocab=c.VocabConfig(warmup_correction=True),
     )
 
 
 def small_config():
-    """The 320x240 / 300-feature configuration of the CPU tests."""
-    return bench_config(width=320, height=240, features=300, slots=320, points=8192,
-                        local_points=2048, keyframes=32, ba_points=2048, ba_local=16)
+    """The 320x240 / 300-feature configuration of the CPU tests (no
+    loop-closer warm-up, as there)."""
+    from orbslam2_tpu_torch import config as c
+
+    cfg = bench_config(width=320, height=240, features=300, slots=320, points=8192,
+                       local_points=2048, keyframes=32, ba_points=2048, ba_local=16)
+    return dataclasses.replace(cfg, vocab=c.VocabConfig())
 
 
 def mono_config():
@@ -423,25 +479,82 @@ def stereo_config(cfg):
     return dataclasses.replace(cfg, sensor=c.Sensor.STEREO)
 
 
-def run_session(cfg, n_frames: int, device, mapping: bool = False):
+# worker processes that render the synthetic frames (numpy on one core,
+# about a second for a 640x480 frame); None renders in this process
+_POOL = None
+_SEQS: dict = {}
+_ONE_THREAD = {"OPENBLAS_NUM_THREADS": "1", "OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1"}
+
+
+def _sequence(spec):
+    """The synthetic sequence of `spec` = (n_frames, kind, camera, revisit):
+    `revisit` frames of the start appended to the poses (the orbits)."""
+    from orbslam2_tpu_torch import synthetic
+
+    if spec not in _SEQS:
+        n_frames, kind, cam, revisit = spec
+        seq = synthetic.textured_sequence(n_frames=n_frames, kind=kind, seed=0, cam=cam)
+        if revisit:
+            seq = dataclasses.replace(seq, poses=np.concatenate([seq.poses, seq.poses[:revisit]]))
+        _SEQS[spec] = seq
+    return _SEQS[spec]
+
+
+def start_render_pool() -> None:
+    """Start the render workers: spawned, not forked (the caller may hold a
+    CUDA context), each with one BLAS thread (eight renderers with a full
+    BLAS pool each ran no faster than one)."""
+    global _POOL
+    saved = {k: os.environ.get(k) for k in _ONE_THREAD}
+    os.environ.update(_ONE_THREAD)
+    try:
+        _POOL = multiprocessing.get_context("spawn").Pool(min(8, os.cpu_count() or 1))
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+
+
+def stop_render_pool() -> None:
+    global _POOL
+    _POOL.terminate()
+    _POOL.join()
+    _POOL = None
+
+
+def _render(task):
+    spec, i, stereo = task
+    seq = _sequence(spec)
+    return seq.stereo(i)[:2] if stereo else seq.frame(i)
+
+
+def render(spec, indices, stereo: bool = False) -> list:
+    """Frames `indices` of the sequence of `spec`, (image, depth) or
+    (left, right) each, rendered by the worker pool when there is one."""
+    tasks = [(spec, i, stereo) for i in indices]
+    if _POOL is None:
+        return [_render(t) for t in tasks]
+    return _POOL.map(_render, tasks)
+
+
+def run_session(cfg, n_frames: int, device, mapping: bool = False, loop_closing: bool = False):
     """Drive the System entry point of `cfg.sensor` (track_rgbd,
     track_stereo or track_monocular) over the forward dolly (the lateral
     sequence for mono), with the frames staged on `device` first. Returns
     (slam, seq, per-frame seconds); each frame ends in a host read of its
     pose, so its time is complete."""
     from orbslam2_tpu_torch import config as c
-    from orbslam2_tpu_torch import synthetic
     from orbslam2_tpu_torch.pipeline.system import System
 
     kind = "lateral" if cfg.sensor == c.Sensor.MONOCULAR else "forward"
-    seq = synthetic.textured_sequence(n_frames=n_frames, kind=kind, seed=0, cam=cfg.camera)
-    if cfg.sensor == c.Sensor.STEREO:
-        frames = [seq.stereo(i)[:2] for i in range(n_frames)]
-    else:
-        frames = [seq.frame(i) for i in range(n_frames)]
+    spec = (n_frames, kind, cfg.camera, 0)
+    seq = _sequence(spec)
+    frames = render(spec, range(n_frames), stereo=cfg.sensor == c.Sensor.STEREO)
     a = torch.from_numpy(np.stack([f[0] for f in frames])).to(device)
     b = torch.from_numpy(np.stack([f[1] for f in frames])).to(device)
-    slam = System(cfg, device=device, enable_mapping=mapping, enable_loop_closing=False)
+    slam = System(cfg, device=device, enable_mapping=mapping, enable_loop_closing=loop_closing)
     track = {c.Sensor.RGBD: slam.track_rgbd, c.Sensor.STEREO: slam.track_stereo,
              c.Sensor.MONOCULAR: lambda img, _, timestamp: slam.track_monocular(img, timestamp)}
     step = track[cfg.sensor]
@@ -747,17 +860,368 @@ def check_small_cpu_agreement(device, cfg, n_frames: int, label: str, mapping: b
         fail(f"the card and the CPU disagree on the {label}")
 
 
+def reloc_small_config():
+    """The CPU tests' `small_cfg` (tests/test_e2e_rgbd.py): 640x480, 600
+    features."""
+    from orbslam2_tpu_torch import config as c
+
+    return c.SlamConfig(
+        sensor=c.Sensor.RGBD,
+        camera=c.CameraConfig(fx=480.0, fy=480.0, cx=319.5, cy=239.5, bf=48.0, fps=30.0),
+        orb=c.OrbConfig(num_features=600, feature_slots=640, candidates_per_level=2048),
+        map=c.MapConfig(max_keyframes=32, max_points=8192, max_local_points=4096),
+        tracking=c.TrackingConfig(th_depth=40.0),
+    )
+
+
+def orbit640_config():
+    """bench.py's segment B: its configuration with `th_depth` 130."""
+    cfg = bench_config()
+    return dataclasses.replace(cfg, tracking=dataclasses.replace(cfg.tracking, th_depth=130.0))
+
+
+def orbit320_config():
+    """`tests/test_loop_reloc.py::test_orbit_loop_closes`'s configuration."""
+    from orbslam2_tpu_torch import config as c
+
+    return c.SlamConfig(
+        sensor=c.Sensor.RGBD,
+        camera=c.CameraConfig(fx=240.0, fy=240.0, cx=159.5, cy=119.5, bf=24.0, fps=30.0,
+                              width=320, height=240),
+        orb=c.OrbConfig(num_features=400, feature_slots=512, candidates_per_level=1024),
+        map=c.MapConfig(max_keyframes=96, max_points=16384, max_local_points=4096),
+        tracking=c.TrackingConfig(th_depth=130.0),
+    )
+
+
+def frame_events(slam, kind: str) -> list[int]:
+    """The frame (0-based) during which each event of `kind` was emitted."""
+    n, out = 0, []
+    for e in slam.log.events:
+        if e["event"] == "frame":
+            n += 1
+        elif e["event"] == kind:
+            out.append(n)
+    return out
+
+
+def staged(frames, device):
+    a = torch.from_numpy(np.stack([f[0] for f in frames])).to(device)
+    b = torch.from_numpy(np.stack([f[1] for f in frames])).to(device)
+    return a, b
+
+
+def timed_track(slam, a, b, i, secs) -> None:
+    """One `track_rgbd` call, its seconds appended to `secs` (it ends in a
+    host read of the pose, so the time is complete)."""
+    if a.device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    slam.track_rgbd(a, b, timestamp=i / 30.0)
+    secs.append(time.perf_counter() - t0)
+
+
+def run_reloc_session(cfg, device):
+    """RELOC_MAP_FRAMES frames of the dolly, RELOC_BLACK black frames, then
+    frame RELOC_REVISIT until it relocalizes (at most RELOC_TRIES times),
+    loop closing on; the tracking state is read where
+    `tools/loop_reference_targets.py` reads it, since the read drains the
+    loop closer. Returns (slam, seq, per-frame seconds, state before the
+    blackout, LOST after it, the try that relocalized or None, the launches
+    of each revisit frame)."""
+    from orbslam2_tpu_torch import kernels, synthetic
+    from orbslam2_tpu_torch.pipeline.system import System
+    from orbslam2_tpu_torch.pipeline.tracking import TrackState
+
+    spec = (RELOC_MAP_FRAMES, "forward", cfg.camera, 0)
+    seq = _sequence(spec)
+    black = np.zeros((cfg.camera.height, cfg.camera.width), np.float32)
+    a, b = staged(render(spec, range(RELOC_MAP_FRAMES)) + [(black, black)] * RELOC_BLACK, device)
+    ra, rb = (torch.from_numpy(x).to(device) for x in seq.frame(RELOC_REVISIT))
+    slam = System(cfg, device=device)
+    secs = []
+    for i in range(RELOC_MAP_FRAMES):
+        timed_track(slam, a[i], b[i], i, secs)
+    ok_before = slam.get_tracking_state() == TrackState.OK and slam.num_keyframes() > 5
+    for i in range(RELOC_MAP_FRAMES, RELOC_MAP_FRAMES + RELOC_BLACK):
+        timed_track(slam, a[i], b[i], i, secs)
+    lost = slam.get_tracking_state() == TrackState.LOST
+    tries, per_try = None, []
+    for j in range(RELOC_TRIES):
+        before = dict(kernels.launch_counts)
+        timed_track(slam, ra, rb, RELOC_MAP_FRAMES + RELOC_BLACK + j, secs)
+        per_try.append({k: kernels.launch_counts[k] - before[k] for k in before})
+        if slam.get_tracking_state() == TrackState.OK:
+            tries = j
+            break
+    return slam, seq, secs, ok_before, lost, tries, per_try
+
+
+def reloc_error(slam, seq) -> float:
+    T = slam.results[-1].Tcw
+    return float(np.linalg.norm((T @ np.linalg.inv(seq.poses[RELOC_REVISIT]))[:3, 3]))
+
+
+def check_reloc_path(device) -> dict:
+    from orbslam2_tpu_torch import kernels
+
+    kernels.launch_counts.update(hamming=0, pose_gn=0)
+    slam, seq, secs, ok_before, lost, tries, per_try = run_reloc_session(bench_config(), device)
+    launches = dict(kernels.launch_counts)
+    err = reloc_error(slam, seq) if tries is not None else float("inf")
+    n = len(secs)
+    print(f"relocalization path: {slam.num_keyframes()} keyframes before the blackout "
+          f"(OK {ok_before}), LOST after it {lost}; relocalized at revisit {tries} (the reference "
+          f"on the CPU: {RELOC640_REFERENCE['relocalized_at_try']}), translation error "
+          f"{err:.6f} m (the reference: {RELOC640_REFERENCE['t_err']:.6f}), "
+          f"{slam.results[-1].num_inliers} inliers", flush=True)
+    print(f"relocalization path: revisit frames {per_try} launches, ms "
+          f"{np.round(1000 * np.asarray(secs[RELOC_MAP_FRAMES + RELOC_BLACK:]), 2).tolist()}; "
+          f"launches {launches} over {n} frames", flush=True)
+    if not (ok_before and lost):
+        fail(f"relocalization path: tracked before the blackout {ok_before}, lost after it {lost}")
+    if tries is None or not err < RELOC_ERR_M:
+        fail(f"relocalization path: relocalized at {tries}, error {err}")
+    if min(per_try[tries].values()) < 1:
+        fail(f"relocalization path: the relocalizing frame launched {per_try[tries]}")
+    return {"launches": launches, "frames": n, "reloc_frame_launches": per_try[tries],
+            "reloc_frame_ms": 1000 * secs[-1], "t_err_m": err}
+
+
+def run_orbit_session(cfg, device) -> dict:
+    """The orbit (ORBIT_FRAMES frames) and its revisit (the first
+    ORBIT_REVISIT poses again) through `track_rgbd`, loop closing on, with
+    the frames staged on `device` first. Returns the session's record:
+    `slam`, `seq`, per-frame seconds `secs`, the launches; every keyframe
+    decision with its inputs (frame, inliers, the reference keyframe's
+    tracked points, close tracked, close free, frames since the last
+    keyframe, keyframes, made); every Sim3
+    verification (frame, the current and the candidate keyframe's frames,
+    n_brute, n_opt, n_guided, ok, its K1 launches) and the frames of the
+    global-BA slices; the seconds of the loop closer's warm-up. The
+    records read only what the session computes; the frame ids are read
+    after the last frame."""
+    from orbslam2_tpu_torch import kernels
+    from orbslam2_tpu_torch.pipeline import fused, loop_closing
+    from orbslam2_tpu_torch.pipeline.system import System
+    from orbslam2_tpu_torch.solvers import ba
+
+    n = ORBIT_FRAMES + ORBIT_REVISIT
+    spec = (ORBIT_FRAMES, "orbit", cfg.camera, ORBIT_REVISIT)
+    seq = _sequence(spec)
+    a, b = staged(render(spec, range(n)), device)
+    secs, decisions, verifications, slice_frames, warmup_s = [], [], [], [], []
+    slice_fn, verify_fn = ba.bundle_adjust_slice, loop_closing._verify_candidate
+    warmup_fn = loop_closing.LoopCloser.warmup_correction
+    step_fn = fused.frame_and_keyframe_step
+    in_warmup, session = [], []
+
+    def recorded_step(*args, **kw):
+        t = session[0].tracker
+        since, n_kfs = t.frames_since_kf, t.n_keyframes
+        frame, res = step_fn(*args, **kw)
+        tr = res.track
+        decisions.append((len(secs), res.n_inliers, since, n_kfs, res.is_kf,
+                          torch.stack([tr.ref_tracked, tr.close_tracked, tr.close_free])))
+        return frame, res
+
+    def counted_slice(*args, **kw):
+        if not in_warmup:
+            slice_frames.append(len(secs))
+        return slice_fn(*args, **kw)
+
+    def recorded_verify(state, kf_id, cand, *args, **kw):
+        before = kernels.launch_counts["hamming"]
+        out = verify_fn(state, kf_id, cand, *args, **kw)
+        if not in_warmup:
+            frames = torch.stack([state.kf_frame_id[kf_id], state.kf_frame_id[cand]])
+            verifications.append((len(secs), frames, out[0],
+                                  kernels.launch_counts["hamming"] - before))
+        return out
+
+    def timed_warmup(self, state):
+        in_warmup.append(True)
+        t0 = time.perf_counter()
+        try:
+            return warmup_fn(self, state)
+        finally:
+            warmup_s.append(time.perf_counter() - t0)
+            in_warmup.clear()
+
+    ba.bundle_adjust_slice = counted_slice
+    loop_closing._verify_candidate = recorded_verify
+    loop_closing.LoopCloser.warmup_correction = timed_warmup
+    fused.frame_and_keyframe_step = recorded_step
+    try:
+        kernels.launch_counts.update(hamming=0, pose_gn=0)
+        slam = System(cfg, device=device)
+        session.append(slam)
+        for i in range(n):
+            timed_track(slam, a[i], b[i], i, secs)
+        t0 = time.perf_counter()
+        slam.flush()
+        secs[-1] += time.perf_counter() - t0
+        launches = dict(kernels.launch_counts)
+    finally:
+        ba.bundle_adjust_slice = slice_fn
+        loop_closing._verify_candidate = verify_fn
+        loop_closing.LoopCloser.warmup_correction = warmup_fn
+        fused.frame_and_keyframe_step = step_fn
+    decisions = [(f, n_inl, *counts.tolist(), since, n_kfs, made)
+                 for f, n_inl, since, n_kfs, made, counts in decisions]
+    verifications = [dict(frame=f, kf_frame=ids[0], cand_frame=ids[1], n_brute=st[0],
+                          n_opt=st[1], n_guided=st[2], ok=bool(st[3]), k1=k1)
+                     for f, ids, st, k1 in ((f, ids.tolist(), st.tolist(), k1)
+                                            for f, ids, st, k1 in verifications)]
+    return dict(slam=slam, seq=seq, secs=secs, launches=launches, decisions=decisions,
+                verifications=verifications, slice_frames=slice_frames, warmup_s=warmup_s)
+
+
+def orbit_outcome(rec: dict) -> dict:
+    """The end-to-end figures of an orbit session's record: loops closed
+    and the frame of each correction, frames lost and which, ATE over the
+    tracked frames, over all frames and over the orbit's frames alone,
+    keyframes and their frames, points, the global-BA fold-in frames."""
+    from orbslam2_tpu_torch import evaluation
+
+    slam, seq = rec["slam"], rec["seq"]
+    _, poses, tracked = slam.frame_poses()
+    n = ORBIT_FRAMES + ORBIT_REVISIT
+    if poses.shape != (n, 4, 4) or not np.isfinite(poses).all():
+        fail(f"orbit: poses of shape {poses.shape}, finite {np.isfinite(poses).all()}")
+    lc = slam.loop_closer
+    return dict(
+        loops_closed=lc.loops_closed if lc is not None else 0,
+        loop_frames=frame_events(slam, "loop_closed"),
+        lost=int((~tracked).sum()), lost_frames=np.nonzero(~tracked)[0].tolist(),
+        ate=float(evaluation.ate_rmse(poses[tracked], seq.poses[tracked], align=True)),
+        ate_all=float(evaluation.ate_rmse(poses, seq.poses, align=True)),
+        ate_orbit=float(evaluation.ate_rmse(poses[:ORBIT_FRAMES], seq.poses[:ORBIT_FRAMES],
+                                            align=True)),
+        keyframes=slam.num_keyframes(), points=slam.num_points(),
+        keyframe_frames=keyframe_frames(slam), fold_frames=frame_events(slam, "gba_folded"))
+
+
+def check_orbit_path(device, cfg, label: str, ref: dict, must_close: bool) -> dict:
+    """The orbit session on the card, against the reference's CPU run:
+    the reference's first keyframes (`ref["kf_prefix"]`, the decisions the
+    card, the CPU port and the reference share), no more frames lost and
+    no more loops closed than the reference, at least one Sim3
+    verification in the revisit against a candidate keyframe made in the
+    orbit's first ORBIT_REVISIT frames (the true loop), K1 in every
+    verification; with `must_close`, at least one loop and the orbit's
+    frames (before the revisit) within ORBIT_ATE_LIMIT_M. (Over 205 frames
+    float rounding moves later keyframe decisions, and the revisit's last
+    frames are where tracking fails in the reference too: the card, the
+    CPU port and the reference need not close the same loops; PERF.md.)"""
+    rec = run_orbit_session(cfg, device)
+    out = orbit_outcome(rec)
+    slam, secs, launches, ver = rec["slam"], rec["secs"], rec["launches"], rec["verifications"]
+    n = len(secs)
+    loops, lost, loop_frames = out["loops_closed"], out["lost"], out["loop_frames"]
+    kf_frames = out["keyframe_frames"]
+
+    def frame_ms(f):
+        # an event of frame n came in the final flush, timed with the last frame
+        return 1000 * secs[min(f, n - 1)]
+
+    print(f"{label}: {loops} loop(s) closed at frames {loop_frames}, {lost} frame(s) lost "
+          f"{out['lost_frames']}, ATE {out['ate']:.5f} m over the tracked frames "
+          f"({out['ate_all']:.5f} over all, {out['ate_orbit']:.5f} over the orbit's "
+          f"{ORBIT_FRAMES}), {out['keyframes']} keyframes, {out['points']} points; the "
+          f"reference on the CPU: {ref['loops_closed']} at {ref['loop_frames']}, {ref['lost']} "
+          f"lost, ATE {ref['ate']:.5f}", flush=True)
+    print(f"{label}: keyframes made at frames {kf_frames}", flush=True)
+    print(f"{label}: {len(ver)} Sim3 verifications (frame, current / candidate keyframe's "
+          f"frame, n_brute, n_opt, n_guided, ok, K1): "
+          f"{[tuple(v.values()) for v in ver]}", flush=True)
+    print(f"{label}: loop-closer warm-up {[round(x, 3) for x in rec['warmup_s']]} s; correction "
+          f"frame(s) ms {[round(frame_ms(f), 2) for f in loop_frames]}; first verification "
+          f"frame ms {[round(frame_ms(v['frame']), 2) for v in ver[:1]]}; global-BA slices "
+          f"at frames {rec['slice_frames']}, folded in at frame(s) {out['fold_frames']}",
+          flush=True)
+    fps = print_rates(label, secs, kf_frames)
+    print(f"{label}: launches {launches} over {n} frames", flush=True)
+    prefix = ref["kf_prefix"]
+    if kf_frames[:len(prefix)] != prefix:
+        fail(f"{label}: first keyframes at {kf_frames[:len(prefix)]}, the reference's {prefix}")
+    if lost > ref["lost"] or loops > ref["loops_closed"]:
+        fail(f"{label}: {loops} loops and {lost} lost frames, the reference "
+             f"{ref['loops_closed']} and {ref['lost']}")
+    if not any(v["frame"] >= ORBIT_FRAMES and v["cand_frame"] < ORBIT_REVISIT for v in ver):
+        fail(f"{label}: no verification of the revisit against a keyframe of the orbit's start")
+    if must_close and (loops < 1 or not out["ate_orbit"] < ORBIT_ATE_LIMIT_M):
+        fail(f"{label}: {loops} loops, ATE over the orbit's frames {out['ate_orbit']}")
+    if min(v["k1"] for v in ver) < 1:
+        fail(f"{label}: K1 launches per verification {[v['k1'] for v in ver]}")
+    if min(launches.values()) < 1:
+        fail(f"{label}: launches {launches}")
+    return {"launches": launches, "frames": n, "fps": fps, "loops_closed": loops,
+            "loop_frames": loop_frames, "lost": lost, "ate_m": out["ate"],
+            "ate_orbit_m": out["ate_orbit"], "k1_per_verification": [v["k1"] for v in ver],
+            "gba_slice_frames": rec["slice_frames"], "gba_fold_frames": out["fold_frames"],
+            "correction_frame_ms": [frame_ms(f) for f in loop_frames],
+            "slice_frame_ms": [frame_ms(f) for f in rec["slice_frames"]]}
+
+
+def check_loop_cpu_agreement(device) -> None:
+    """Loop closing on, the card against the CPU: the 320x240 dolly (18
+    frames) and the relocalization session at the CPU tests' 640x480
+    configuration. The same keyframes, database rows and relocalization
+    frame; per-frame poses within LOOP_CPU_DT_M (the relocalization
+    session's earlier frames within RELOC_CPU_DT_M), the last frame's
+    within LOOP_CPU_DT_M."""
+    cpu = torch.device("cpu")
+
+    def db_rows(slam):
+        db = slam.loop_closer.db
+        return db.present.cpu(), db.vectors.cpu()
+
+    def compare(label, g, c, extra_ok=True, bar=LOOP_CPU_DT_M):
+        kg, kc = keyframe_frames(g), keyframe_frames(c)
+        (pg_, vg), (pc_, vc) = db_rows(g), db_rows(c)
+        _, pg, tg = g.frame_poses()
+        _, pc, tc = c.frame_poses()
+        dt, deg = pose_gaps(pg, pc)
+        vec_err = float((vg - vc).abs().max())
+        print(f"{label}, card vs CPU: keyframes {kg} / {kc}, database rows "
+              f"{torch.nonzero(pg_).flatten().tolist()} / {torch.nonzero(pc_).flatten().tolist()} "
+              f"(vectors max err {vec_err:.2e}), tracked {int(tg.sum())}/{int(tc.sum())}, max dt "
+              f"{dt.max():.3e} m (frame {int(np.argmax(dt))}), max rot {deg.max():.3e} deg", flush=True)
+        print(f"{label}, card vs CPU: dt per frame {[float(f'{x:.2e}') for x in dt]}", flush=True)
+        if not (extra_ok and kg == kc and torch.equal(pg_, pc_) and vec_err < 1e-6
+                and np.array_equal(tg, tc) and dt.max() < bar and dt[-1] < LOOP_CPU_DT_M):
+            fail(f"the card and the CPU disagree on the {label}")
+
+    g, _, _ = run_session(small_config(), SMALL_MAP_FRAMES, device, mapping=True, loop_closing=True)
+    c, _, _ = run_session(small_config(), SMALL_MAP_FRAMES, cpu, mapping=True, loop_closing=True)
+    compare("small session with loop closing", g, c, keyframe_frames(g) == SMALL_MAP_KFS)
+    g, seq, _, _, _, tg, _ = run_reloc_session(reloc_small_config(), device)
+    c, _, _, _, _, tc, _ = run_reloc_session(reloc_small_config(), cpu)
+    print(f"small relocalization session, card vs CPU: relocalized at revisit {tg} / {tc}, "
+          f"errors {reloc_error(g, seq):.6f} / {reloc_error(c, seq):.6f} m", flush=True)
+    compare("small relocalization session", g, c, tg is not None and tg == tc, RELOC_CPU_DT_M)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
         sys.exit(2)
-    from orbslam2_tpu_torch import kernels
-
     device = torch.device("cuda")
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}",
           flush=True)
     card = card_line()
     print(card, flush=True)
+
+    start_render_pool()
+    try:
+        run_phases(device, card)
+    finally:
+        stop_render_pool()
+
+
+def run_phases(device, card: str) -> None:
+    from orbslam2_tpu_torch import kernels
 
     t_start = t0 = time.perf_counter()
     kernels.build()
@@ -782,11 +1246,20 @@ def main() -> None:
     check_small_cpu_agreement(device, stereo_config(small_config()), SMALL_MAP_FRAMES,
                               "small stereo session")
     check_small_cpu_agreement(device, mono_config(), SMALL_MONO_FRAMES, "small mono session")
+    t0 = time.perf_counter()
+    reloc = check_reloc_path(device)
+    orbit640 = check_orbit_path(device, orbit640_config(), "640x480 orbit", ORBIT640_REFERENCE,
+                                must_close=False)
+    orbit320 = check_orbit_path(device, orbit320_config(), "320x240 orbit", ORBIT320_REFERENCE,
+                                must_close=True)
+    check_loop_cpu_agreement(device)
+    print(f"loop-closing phases: {time.perf_counter() - t0:.1f} s", flush=True)
 
     if "jax" in sys.modules:
         fail("jax was imported")
-    paths = (main_path, mapping, stereo_path, mono_path)
-    names = ("rgbd_tracking", "rgbd_mapping", "stereo_mapping", "mono_mapping")
+    paths = (main_path, mapping, stereo_path, mono_path, reloc, orbit640, orbit320)
+    names = ("rgbd_tracking", "rgbd_mapping", "stereo_mapping", "mono_mapping",
+             "rgbd_relocalization", "rgbd_orbit_640", "rgbd_orbit_320")
     for k, key in ((k1, "hamming"), (k2, "pose_gn")):
         k["launches"] = sum(p["launches"][key] for p in paths)
         k["launches_per_path"] = {name: {"launches": p["launches"][key], "frames": p["frames"]}
@@ -795,6 +1268,11 @@ def main() -> None:
     per["rgbd_mapping"]["per_keyframe_step"] = mapping["k1_per_keyframe_step"]
     per["stereo_mapping"]["per_stereo_match"] = stereo_path["k1_per_stereo_match"]
     per["mono_mapping"]["per_init_search"] = mono_path["k1_per_init_search"]
+    for name, p in (("rgbd_orbit_640", orbit640), ("rgbd_orbit_320", orbit320)):
+        per[name]["per_verification"] = p["k1_per_verification"]
+    for k, key in ((k1, "hamming"), (k2, "pose_gn")):
+        k["launches_per_path"]["rgbd_relocalization"]["in_relocalizing_frame"] = \
+            reloc["reloc_frame_launches"][key]
     for name, p in zip(names, paths):
         print(f"{name}: launches per frame, K1 {p['launches']['hamming'] / p['frames']:.2f}, "
               f"K2 {p['launches']['pose_gn'] / p['frames']:.2f} ({p['frames']} frames)",

@@ -138,10 +138,9 @@ def make(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     R = R.expand(batch + (3, 3))
     t = t.expand(batch + (3,))
     top = torch.cat([R, t[..., None]], dim=-1)
-    # built on the device: a row copied from the host would wait for the
-    # card's queue on every call
-    bottom = torch.zeros(4, dtype=R.dtype, device=R.device)
-    bottom[3] = 1.0
+    # built on the device by a comparison: a row copied from the host, or
+    # a Python number written into it, waits for the card's queue
+    bottom = (torch.arange(4, device=R.device) == 3).to(R.dtype)
     return torch.cat([top, bottom.expand(batch + (1, 4))], dim=-2)
 
 

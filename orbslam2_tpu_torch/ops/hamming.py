@@ -30,3 +30,9 @@ def distance_matrix(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     for w in range(a.shape[1]):
         out += popcount_u32(torch.bitwise_xor(a[:, w, None], b[None, :, w]))
     return out
+
+
+def distance(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Elementwise Hamming distance: a, b [..., 8] int32 (broadcast) ->
+    [...] int32."""
+    return torch.sum(popcount_u32(torch.bitwise_xor(a, b)), dim=-1, dtype=torch.int32)

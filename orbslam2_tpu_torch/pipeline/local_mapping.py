@@ -360,6 +360,28 @@ def fuse_points_into_kf(
     fuse_apply(state, point_ids, feat, target_kf)
 
 
+def fuse_points_into_kfs(
+    state: ms.MapState,
+    point_ids,
+    point_mask,
+    targets,
+    target_ok,
+    K: cam_geo.Intrinsics,
+    scale_factors,
+    image_bounds,
+    num_levels: int = 8,
+) -> None:
+    """SearchAndFuse over many target keyframes [T]: every target's
+    projection match runs against the state before any fuse (the
+    reference's `vmap`), then the fuses apply one target after another, so
+    each conflict is decided on the observation counts of the moment. A
+    target whose `target_ok` is False fuses nothing."""
+    feats = [fuse_match(state, point_ids, point_mask, targets[i], K, scale_factors,
+                        image_bounds, num_levels=num_levels) for i in range(targets.shape[0])]
+    for i, feat in enumerate(feats):
+        fuse_apply(state, torch.where(target_ok[i], point_ids, -1), feat, targets[i])
+
+
 # ---------------------------------------------------------------------------
 # local BA assembly (ORB-SLAM2 Optimizer::LocalBundleAdjustment)
 # ---------------------------------------------------------------------------
@@ -462,6 +484,39 @@ def writeback_local_ba(state: ms.MapState, result: ba.BAResult, prob: ba.BAProbl
     P = state.capacity_mp
     few = point_ok & (state.mp_n_obs[_i64(torch.clamp(point_ids, 0, P - 1))] < 2)
     invalidate_points(state, point_ids, few)
+
+
+def build_global_ba_problem(state: ms.MapState, inv_sigma2, max_points: int = 32768,
+                            obs_slots: int = 16):
+    """The whole map as one BAProblem: every valid keyframe a camera, free
+    but for slot 0 (gauge), every point slot below `max_points` with its
+    observation rows. Returns the tuple `build_local_ba_problem` returns,
+    so `writeback_local_ba` applies unchanged. Every tensor of the problem
+    is a copy: the map is updated in place while a time-sliced global BA
+    runs on the problem."""
+    Kcap = state.capacity_kf
+    dev = state.kf_valid.device
+    cam_ids = torch.arange(Kcap, dtype=torch.int32, device=dev)
+    pts = torch.arange(min(max_points, state.capacity_mp), dtype=torch.int32, device=dev)
+    pt_ok = state.mp_valid[pts]
+    obs_kf = state.mp_obs_kf[pts][:, :obs_slots]
+    obs_ft = state.mp_obs_feat[pts][:, :obs_slots]
+    okf = _i64(torch.clamp(obs_kf, 0, Kcap - 1))
+    obs_ok = (obs_kf >= 0) & pt_ok[:, None] & state.kf_valid[okf]
+    ftc = _i64(torch.clamp(obs_ft, 0, state.kf_xy.shape[1] - 1))
+    octv = state.kf_octave[okf, ftc]
+    prob = ba.BAProblem(
+        cam_Tcw=state.kf_Tcw.clone(),
+        cam_free=state.kf_valid & (cam_ids != 0),
+        points=state.mp_pos[pts],
+        point_valid=pt_ok,
+        obs_cam=okf,
+        obs_uv=state.kf_xy[okf, ftc],
+        obs_ur=torch.where(obs_ok, state.kf_ur[okf, ftc], -1.0),
+        obs_inv_sigma2=inv_sigma2[_i64(torch.clamp(octv, 0, inv_sigma2.shape[0] - 1))],
+        obs_valid=obs_ok,
+    )
+    return prob, cam_ids, state.kf_valid.clone(), pts, pt_ok
 
 
 # ---------------------------------------------------------------------------

@@ -3,8 +3,8 @@
 Port of `orbslam2_tpu.pipeline.tracking`: the matching and local-map
 stages as functions on tensors, and the host-side `Tracker`
 (NOT_INITIALIZED -> OK <-> LOST) that sequences them, with the stereo /
-RGB-D and the monocular (two-view H/F) initializations. Relocalization is
-not ported yet.
+RGB-D and the monocular (two-view H/F) initializations, and relocalization
+from the loop closer's keyframe database.
 """
 
 from __future__ import annotations
@@ -21,8 +21,11 @@ from orbslam2_tpu_torch.geometry import se3
 from orbslam2_tpu_torch.ops import match
 from orbslam2_tpu_torch.pipeline.frame import FrameBuilder, FrameData
 from orbslam2_tpu_torch.slam_map import map_state as ms
+from orbslam2_tpu_torch.solvers import epnp
 from orbslam2_tpu_torch.solvers import initializer as mono_init
 from orbslam2_tpu_torch.solvers import pose_opt
+from orbslam2_tpu_torch.solvers.cuda_pose_opt import pose_optimize_fast
+from orbslam2_tpu_torch.vocab import bow
 
 
 class TrackState(enum.Enum):
@@ -89,6 +92,14 @@ def reference_kf_match(kf_desc, kf_point_idx, kf_angle, kf_feat_valid, mp_valid,
     return torch.where(
         assigned >= 0, kf_point_idx[_i64(torch.clamp(assigned, 0, kf_desc.shape[0] - 1))], -1
     )
+
+
+def _host(*xs: torch.Tensor):
+    """Read tensors back to the host, one read each (a list, or a Python
+    scalar for a 0-d tensor): relocalization's host reads, the
+    reference's own, all go through here."""
+    out = [x.tolist() for x in xs]
+    return out[0] if len(out) == 1 else out
 
 
 def _nanmedian(x: torch.Tensor) -> torch.Tensor:
@@ -192,8 +203,11 @@ def search_local_points(
 
     # already-bound points are not re-matched
     P = state.capacity_mp
-    bound_flag = torch.zeros(P + 1, dtype=torch.bool, device=pw.device)
-    bound_flag[_i64(torch.where(cur_point_idx >= 0, cur_point_idx, P))] = True
+    bound = _i64(torch.where(cur_point_idx >= 0, cur_point_idx, P))
+    # the value on the device: a Python scalar written through an index is
+    # copied from the host, and the copy waits for the card
+    bound_flag = torch.zeros(P + 1, dtype=torch.bool, device=pw.device).index_put_(
+        (bound,), torch.ones_like(bound, dtype=torch.bool))
     visible = visible & ~bound_flag[local_points]
 
     # predicted octave from distance (MapPoint::PredictScale)
@@ -276,14 +290,17 @@ class Tracker:
         self.ref_kf: int = -1
         self.frames_since_kf = 0
         self.n_keyframes = 0
+        # the last tracked frame's inlier count (what a relocalized frame
+        # reports, as in the reference)
+        self.last_inliers = 0
         self._params = None
         self._ref_pose_np = np.eye(4)
         # set when the policy requests a keyframe; consumed by System
         self.kf_request = None
         self.new_keyframe_ids: list[int] = []
         # monocular initialization: the first frame of the pair, and the
-        # CPU generator of the RANSAC draws (the card and the CPU draw the
-        # same minimal sets)
+        # CPU generator of its and relocalization's RANSAC draws (the card
+        # and the CPU draw the same minimal sets)
         self.init_frame: Optional[FrameData] = None
         self.init_generator = torch.Generator().manual_seed(cfg.seed)
         # per-frame trajectory log: (timestamp, Tcr, ref_kf, tracked)
@@ -427,12 +444,90 @@ class Tracker:
 
     # -- main entry --------------------------------------------------------
 
-    def process(self, frame: FrameData) -> TrackResult:
+    # -- relocalization ----------------------------------------------------
+
+    def draw_pnp_samples(self, mask: torch.Tensor) -> torch.Tensor:
+        """The [iters, 6] minimal sets of one EPnP RANSAC, from the
+        tracker's CPU generator; a test may replace this method to
+        reproduce another draw."""
+        return epnp.draw_pnp_samples(mask, self.cfg.solver.pnp_ransac_iters,
+                                     self.init_generator)
+
+    def relocalize(self, frame: FrameData, db) -> bool:
+        """Recover from LOST through the keyframe database (ORB-SLAM2
+        Tracking::Relocalization): for each of the best 5 candidates, a
+        brute match to its bound features, EPnP RANSAC for the initial
+        pose (the candidate's own pose if it fails), robust pose
+        optimisation, then the escalating projection search until >= 50
+        inliers. The host reads are the reference's: the candidate list,
+        and per candidate the match count, the RANSAC's success and the two
+        inlier counts, each through `_host`, and the reference pose's on
+        success."""
+        if db is None:
+            return False
+        st = self.map
+        cfg = self.cfg
+        # the query vector carries no idf, as in the reference
+        vec = bow.bow_vector(frame.desc, frame.valid, db.codebook)
+        # no covisibility exclusion and no min score, but the same
+        # top-10 covisibility-group accumulation as loop detection; culled
+        # slots whose row lingers are excluded
+        cand, mask, _ = db.query(vec, ~st.kf_valid, 0.0, st.covis)
+        cands = [c for c, m in zip(*_host(cand, mask)) if m][:5]
+        P = st.capacity_mp
+        oct_c = _i64(torch.clamp(frame.octave, 0, self.inv_sigma2.shape[0] - 1))
+        for c in cands:
+            bind = reference_kf_match(st.kf_desc[c], st.kf_point_idx[c], st.kf_angle[c],
+                                      st.kf_feat_valid[c], st.mp_valid, frame)
+            if _host(torch.sum(bind >= 0)) < cfg.tracking.min_matches_ref:
+                continue
+            pid = _i64(torch.clamp(bind, 0, P - 1))
+            pnp_mask = (bind >= 0) & st.mp_valid[pid]
+            pnp = epnp.ransac_pnp(st.mp_pos[pid], frame.xy, pnp_mask, self.inv_sigma2[oct_c], self.K,
+                                  self.draw_pnp_samples(pnp_mask),
+                                  min_inliers=cfg.solver.pnp_min_inliers)
+            T_init = pnp.Tcw if _host(pnp.success) else st.kf_Tcw[c]
+            obs = build_pose_observations(bind, frame, st.mp_pos, st.mp_valid, self.inv_sigma2)
+            res = pose_optimize_fast(T_init, obs, self.K)
+            if _host(res.num_inliers) < cfg.tracking.min_inliers_track:
+                continue
+            Tcw = res.Tcw
+            bind = torch.where(res.inliers, bind, -1)
+            # escalating projection search
+            _, _, lpts, lptsm, _ = gather_local_map(
+                st, st.kf_point_idx[c], max_local_kfs=cfg.map.max_local_keyframes,
+                max_local_points=cfg.map.max_local_points)
+            for radius_mult in (2.5, 1.0):
+                bind, _ = search_local_points(st, lpts, lptsm, Tcw, bind, frame, self.K,
+                                              self.scale_factors, self.bounds, radius_mult,
+                                              num_levels=cfg.orb.num_levels)
+                obs = build_pose_observations(bind, frame, st.mp_pos, st.mp_valid,
+                                              self.inv_sigma2)
+                res = pose_optimize_fast(Tcw, obs, self.K)
+                Tcw = res.Tcw
+                bind = torch.where(res.inliers, bind, -1)
+            if _host(res.num_inliers) >= cfg.tracking.min_inliers_local_after_reloc:
+                self.state = TrackState.OK
+                self.last_Tcw = Tcw
+                self.last_frame = frame
+                self.last_point_idx = bind
+                self.velocity = None
+                self.ref_kf = c
+                self.refresh_ref_pose()
+                return True
+        return False
+
+    # -- main entry --------------------------------------------------------
+
+    def process(self, frame: FrameData, reloc_db=None) -> TrackResult:
         """One frame through the state machine (the synchronous path;
-        steady-state frames go through System's dispatch)."""
+        steady-state frames go through System's dispatch). A LOST tracker
+        relocalizes against `reloc_db`, the loop closer's database."""
         if self.state == TrackState.LOST:
-            # relocalization is not ported: without a keyframe database the
-            # reference's attempt fails the same way
+            if self.relocalize(frame, reloc_db):
+                Tcw_np = self.last_Tcw.cpu().numpy()
+                self._log_pose(frame, True, Tcw_np)
+                return TrackResult(Tcw_np, self.state, self.last_inliers, False)
             self._log_pose(frame, False)
             Tcw = self.last_Tcw.cpu().numpy() if self.last_Tcw is not None else np.eye(4)
             return TrackResult(Tcw, self.state, 0, False)
@@ -483,6 +578,7 @@ class Tracker:
 
         self.state = TrackState.OK
         self.velocity = out.Tcw @ se3.inverse(self.last_Tcw)
+        self.last_inliers = n_inliers
         is_kf = self._need_new_keyframe(n_inliers, ref_tracked, close_t, close_f)
         if is_kf:
             self.kf_request = (frame, out.Tcw, out.point_idx)

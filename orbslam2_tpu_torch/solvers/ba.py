@@ -298,6 +298,17 @@ def _lm_steps(prob: BAProblem, K: Intrinsics, cam, pts, lam, iters: int, use_ker
     return cam, pts, lam, cost
 
 
+def bundle_adjust_slice(prob: BAProblem, K: Intrinsics, cam, pts, lam, iters: int,
+                        use_kernel: bool):
+    """One bounded slice of LM iterations with an explicit carry (cam,
+    pts, lam), for the time-sliced global BA: the loop closer runs one
+    slice per tracked frame. Returns (cam, pts, lam, cost). A chain of
+    slices gives what one `bundle_adjust` run of all the iterations gives:
+    a rejected step restores (cam, pts) and their terms together, so
+    linearising again at a slice boundary changes nothing."""
+    return _lm_steps(prob, K, cam, pts, lam, iters, use_kernel)
+
+
 def bundle_adjust(
     prob: BAProblem, K: Intrinsics, iters: int = 10, use_kernel: bool = True, lam0: float = 1e-4
 ) -> BAResult:

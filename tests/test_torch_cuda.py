@@ -322,3 +322,232 @@ def test_bundle_adjust_card_is_deterministic(device, stereo):
     second = ba.two_phase_bundle_adjust(prob, K)
     for x, y in zip(first, second):
         assert torch.equal(x, y)
+
+
+# -- relocalization and loop closing ---------------------------------------
+
+
+def _builtin_vocab(device):
+    from pathlib import Path
+
+    from orbslam2_tpu_torch import convert
+    from orbslam2_tpu_torch.vocab import bow
+
+    z = np.load(Path(__file__).resolve().parent.parent / "orbslam2_tpu_torch" / "data" / "vocab.npz")
+    return (bow.Codebook(coarse=convert.to_tensor(z["coarse"], device),
+                         fine=convert.to_tensor(z["fine"], device)),
+            convert.to_tensor(z["idf"], device))
+
+
+@pytest.fixture(scope="module")
+def loop_map():
+    """The 320x240 dolly (18 frames, mapping and loop closing on) tracked on
+    the CPU, and its map: the same map on the card and the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from chip_smoke import run_session, small_config
+
+    slam, seq, _ = run_session(small_config(), 18, torch.device("cpu"), mapping=True,
+                               loop_closing=True)
+    return slam, seq
+
+
+def _map_on(slam, device):
+    from orbslam2_tpu_torch import convert
+
+    return convert.map_state_from_numpy(convert.map_state_to_numpy(slam.map), device)
+
+
+def test_bow_and_query_card_match_cpu(device):
+    """The shipped two-level vocabulary: the same word of every descriptor
+    (so the same integer counts), vectors within 1e-6 and the same query
+    candidates, card against CPU; one BoW assignment launches K1 once."""
+    from orbslam2_tpu_torch import kernels
+    from orbslam2_tpu_torch.vocab import bow
+    from orbslam2_tpu_torch.vocab.database import _query
+
+    rng = np.random.default_rng(0)
+    cb_g, idf_g = _builtin_vocab(device)
+    cb_c, idf_c = _builtin_vocab("cpu")
+    K, S = 12, 1024
+    desc = torch.from_numpy(rng.integers(0, 2**32, (K, S, 8), dtype=np.uint32).view(np.int32))
+    valid = torch.from_numpy(rng.random((K, S)) < 0.8)
+    before = kernels.launch_counts["hamming"]
+    ids_g = bow.word_ids(desc[0].to(device), cb_g)
+    assert kernels.launch_counts["hamming"] == before + 1
+    assert torch.equal(ids_g.cpu(), bow.word_ids(desc[0], cb_c))
+    rows_g = torch.stack([bow.bow_vector(desc[k].to(device), valid[k].to(device), cb_g, idf_g)
+                          for k in range(K)])
+    rows_c = torch.stack([bow.bow_vector(desc[k], valid[k], cb_c, idf_c) for k in range(K)])
+    assert float((rows_g.cpu() - rows_c).abs().max()) < 1e-6
+    covis = torch.from_numpy(rng.integers(0, 4, (K, K)).astype(np.int32) * 10)
+    present = torch.from_numpy(rng.random(K) < 0.9)
+    exclude = torch.zeros(K, dtype=torch.bool)
+    exclude[0] = True
+    q_c = _query(rows_c, present, rows_c[0], exclude, 0.0, covis, 8)
+    q_g = _query(rows_g, present.to(device), rows_g[0], exclude.to(device), 0.0, covis.to(device), 8)
+    assert torch.equal(q_g[0].cpu(), q_c[0]) and torch.equal(q_g[1].cpu(), q_c[1])
+
+
+def test_verify_candidate_card_matches_cpu(device, loop_map):
+    """The fused Sim3 verification of keyframe 2 against keyframe 0 on the
+    same map with the same draw: equal stats, match and guided sets, S12
+    within 1e-4."""
+    from orbslam2_tpu_torch.pipeline import loop_closing as lc
+    from orbslam2_tpu_torch.solvers import horn
+
+    slam, _ = loop_map
+    sf = slam.loop_closer.scale_factors
+    ls2 = slam.loop_closer.level_sigma2
+
+    def run(dev):
+        return lc._verify_candidate(
+            _map_on(slam, dev), 2, 0,
+            lambda m: horn.draw_sim3_samples(m, 128, torch.Generator().manual_seed(5)),
+            slam.builder.K if dev == "cpu" else _intrinsics_on(slam.builder.K, dev),
+            sf.to(dev), ls2.to(dev))
+
+    got, ref = run(device), run("cpu")
+    assert torch.equal(got[0].cpu(), ref[0]), (got[0], ref[0])
+    assert float((got[1].cpu() - ref[1]).abs().max()) <= 1e-4
+    for a, b in zip(got[2:], ref[2:]):
+        assert torch.equal(a.cpu(), b)
+
+
+def _intrinsics_on(K, device):
+    return type(K)(*(x.to(device) for x in K))
+
+
+def _chain_problem(device, Kn=24, seed=0):
+    """A drifted ring of Kn keyframes with a loop edge, built by the port."""
+    from orbslam2_tpu_torch.geometry import se3
+    from orbslam2_tpu_torch.solvers import pose_graph
+
+    g = torch.Generator().manual_seed(seed)
+    gt = torch.stack([se3.exp_se3(torch.tensor([np.cos(2 * np.pi * i / Kn), np.sin(2 * np.pi * i / Kn),
+                                                0, 0, 0, 2 * np.pi * i / Kn], dtype=torch.float32))
+                      for i in range(Kn)])
+    est = torch.stack([gt[0]] + [se3.exp_se3(0.003 * i * torch.randn(6, generator=g)) @ gt[i]
+                                 for i in range(1, Kn)])
+    ei = list(range(Kn - 1)) + [Kn - 1, 3]
+    ej = list(range(1, Kn)) + [0, 15]
+    meas = torch.stack([pose_graph.se3_to_pack(gt[b] @ se3.inverse(gt[a])) for a, b in zip(ei, ej)])
+    fixed = torch.zeros(Kn, dtype=torch.bool)
+    fixed[0] = True
+    prob = pose_graph.PoseGraphProblem(
+        vertices=pose_graph.se3_to_pack(est), vertex_valid=torch.ones(Kn, dtype=torch.bool),
+        vertex_fixed=fixed, edge_i=torch.tensor(ei, dtype=torch.int32),
+        edge_j=torch.tensor(ej, dtype=torch.int32), edge_meas=meas,
+        edge_valid=torch.ones(len(ei), dtype=torch.bool),
+        edge_weight=torch.tensor([1.0] * (Kn - 1) + [5.0, 1.0]))
+    return pose_graph.PoseGraphProblem(*(x.to(device) for x in prob))
+
+
+def test_dense_pose_graph_card_matches_cpu(device):
+    from orbslam2_tpu_torch.solvers import pose_graph
+
+    got = pose_graph.optimize_pose_graph(_chain_problem(device), iters=20)
+    ref = pose_graph.optimize_pose_graph(_chain_problem("cpu"), iters=20)
+    assert float((got.cpu() - ref).abs().max()) <= 1e-4
+    again = pose_graph.optimize_pose_graph(_chain_problem(device), iters=20)
+    assert torch.equal(got, again)
+
+
+def test_global_ba_slice_chains_repeat_bitwise(device, loop_map):
+    """Two chains of global-BA slices over the same snapshot problem on the
+    card give equal bits (fixed-order segment sums, no atomics)."""
+    from orbslam2_tpu_torch.pipeline import local_mapping as lm
+    from orbslam2_tpu_torch.solvers import ba
+
+    slam, _ = loop_map
+    lc = slam.loop_closer
+    st = _map_on(slam, device)
+    K = _intrinsics_on(slam.builder.K, device)
+    prob, *_ = lm.build_global_ba_problem(st, lc.inv_sigma2.to(device),
+                                          max_points=st.capacity_mp, obs_slots=st.obs_slots)
+
+    def chain():
+        cam, pts, lam = prob.cam_Tcw, prob.points, torch.tensor(1e-4, device=device)
+        for _ in range(3):
+            cam, pts, lam, cost = ba.bundle_adjust_slice(prob, K, cam, pts, lam, iters=2,
+                                                         use_kernel=True)
+        return cam, pts, lam, cost
+
+    first, second = chain(), chain()
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+    assert torch.isfinite(first[0]).all() and torch.isfinite(first[1]).all()
+
+
+def test_relocalize_reads_only_the_reference_host_reads(device, loop_map):
+    """`Tracker.relocalize` on the card (a LOST tracker, frame 10, the
+    map's database) under CUDA sync debug mode: every synchronising
+    operation is one of the reference's host reads (`tracking._host`, and
+    the reference pose's pull on success)."""
+    import traceback
+    import warnings
+
+    from orbslam2_tpu_torch.pipeline import tracking
+    from orbslam2_tpu_torch.pipeline.system import System
+    from chip_smoke import small_config
+
+    slam, seq = loop_map
+    sys_g = System(small_config(), device=device)
+    sys_g.map = _map_on(slam, device)
+    sys_g.tracker.map = sys_g.map
+    sys_g.tracker.state = tracking.TrackState.LOST
+    sys_g._ensure_loop_closer(0)
+    db = sys_g.loop_closer.db
+    db.vectors.copy_(slam.loop_closer.db.vectors.to(device))
+    db.present.copy_(slam.loop_closer.db.present.to(device))
+    img, depth = (torch.from_numpy(x).to(device) for x in seq.frame(10))
+    frame = sys_g.builder.rgbd(img, depth, 10 / 30.0)
+    frame.xy.sum().item()  # the frame is built before the window
+    reads = [0]
+    host = tracking._host
+
+    def counted(*xs):
+        reads[0] += len(xs)
+        return host(*xs)
+
+    syncs = []
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing" in str(message):
+            here = [f"{f.filename.split('/')[-1]}:{f.lineno} {f.name}"
+                    for f in traceback.extract_stack()[:-1] if "orbslam2_tpu_torch" in f.filename]
+            syncs.append(here[-3:])
+
+    tracking._host = counted
+    try:
+        torch.cuda.synchronize()
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = record
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                ok = sys_g.tracker.relocalize(frame, db)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+    finally:
+        tracking._host = host
+    assert ok
+    if len(syncs) != reads[0] + 1:
+        pytest.fail(f"{len(syncs)} synchronising operations, {reads[0]} host reads + 1:\n"
+                    + "\n".join(" <- ".join(reversed(s)) for s in syncs))
+
+
+def test_train_codebook_card_matches_cpu(device):
+    """The session-trained vocabulary's k-medians (K1 assignments, integer
+    counts) gives the same words on the card as on the CPU from the same
+    seeds, and its draw picks the same seeds on both."""
+    from orbslam2_tpu_torch.vocab import bow
+
+    rng = np.random.default_rng(2)
+    desc = torch.from_numpy(rng.integers(0, 2**32, (2048, 8), dtype=np.uint32).view(np.int32))
+    valid = torch.from_numpy(rng.random(2048) < 0.9)
+    seeds_c = bow.draw_codebook_seeds(valid, 256, 6, torch.Generator().manual_seed(1))
+    seeds_g = bow.draw_codebook_seeds(valid.to(device), 256, 6, torch.Generator().manual_seed(1))
+    assert torch.equal(seeds_g.cpu(), seeds_c)
+    got = bow.train_codebook(desc.to(device), valid.to(device), seeds_g, 256, 6)
+    assert torch.equal(got.cpu(), bow.train_codebook(desc, valid, seeds_c, 256, 6))

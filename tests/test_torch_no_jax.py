@@ -8,7 +8,7 @@ import pytest
 import torch
 
 from orbslam2_tpu_torch import kernels
-from orbslam2_tpu_torch.config import OrbConfig, SlamConfig, Sensor, TrackingConfig
+from orbslam2_tpu_torch.config import OrbConfig, SlamConfig, Sensor, TrackingConfig, VocabConfig
 from orbslam2_tpu_torch.pipeline.system import System
 
 REPO = Path(__file__).resolve().parent.parent
@@ -16,11 +16,17 @@ REPO = Path(__file__).resolve().parent.parent
 
 def test_port_imports_no_jax():
     """Neither jax nor any module of the reference package is loaded by the
-    port's session, its converters, its kernels or `chip_smoke.py`."""
+    port's session, its converters, its kernels, its loop-closing and
+    relocalization modules or `chip_smoke.py`."""
     code = (
         "import sys\n"
         "import orbslam2_tpu_torch.pipeline.system, orbslam2_tpu_torch.convert, "
         "orbslam2_tpu_torch.kernels, chip_smoke\n"
+        "import orbslam2_tpu_torch.pipeline.loop_closing, orbslam2_tpu_torch.vocab.bow, "
+        "orbslam2_tpu_torch.vocab.database, orbslam2_tpu_torch.solvers.epnp, "
+        "orbslam2_tpu_torch.solvers.horn, orbslam2_tpu_torch.solvers.sim3_opt, "
+        "orbslam2_tpu_torch.solvers.pose_graph, orbslam2_tpu_torch.solvers.sym_eigh, "
+        "orbslam2_tpu_torch.geometry.sim3\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
         "ref = sorted(m for m in sys.modules if m.split('.')[0] == 'orbslam2_tpu')\n"
         "assert not ref, ref\n"
@@ -102,9 +108,11 @@ def test_cuda_session_refuses_more_slots_than_the_pose_kernel_takes():
 
 
 @pytest.mark.parametrize("kwargs,cfg", [
-    # mapping is ported; mapping with loop closing is not
-    ({"enable_mapping": True, "enable_loop_closing": True}, SlamConfig()),
-    ({"enable_mapping": False, "enable_loop_closing": True}, SlamConfig()),
+    # mapping and loop closing are ported; pipelining them is not
+    ({"enable_mapping": True, "enable_loop_closing": True},
+     SlamConfig(tracking=TrackingConfig(pipeline_depth=2))),
+    ({"enable_mapping": False, "enable_loop_closing": True},
+     SlamConfig(vocab=VocabConfig(vocab_file=None), tracking=TrackingConfig(pipeline_depth=1))),
     ({"enable_mapping": False, "enable_loop_closing": False},
      SlamConfig(tracking=TrackingConfig(pipeline_depth=1))),
     # stereo and mono sessions are ported; pipelining them is not
@@ -116,6 +124,27 @@ def test_cuda_session_refuses_more_slots_than_the_pose_kernel_takes():
 def test_unported_modes_raise(kwargs, cfg):
     with pytest.raises(NotImplementedError):
         System(cfg, device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("sensor", [Sensor.RGBD, Sensor.STEREO, Sensor.MONOCULAR])
+def test_loop_closing_session_constructs(sensor):
+    """Loop closing is on by default, for every sensor; the loop closer is
+    made with the shipped vocabulary at the first keyframe it sees, or
+    without a vocabulary file trains its own there."""
+    slam = System(SlamConfig(sensor=sensor), device="cpu")
+    assert slam.enable_mapping and slam.enable_loop_closing
+    assert slam.loop_closer is None
+    assert slam._vocab_path().endswith("orbslam2_tpu_torch/data/vocab.npz")
+    for vocab_file in (None, "", "/nonexistent/vocab.npz"):
+        own = System(SlamConfig(sensor=sensor, vocab=VocabConfig(vocab_file=vocab_file)),
+                     device="cpu")
+        assert own._vocab_path() is None and own._load_vocab_file() == (None, None)
+
+
+def test_vocabulary_copy_equals_reference():
+    """The port ships its own copy of the reference's vocabulary."""
+    ref = (REPO / "orbslam2_tpu" / "data" / "vocab.npz").read_bytes()
+    assert (REPO / "orbslam2_tpu_torch" / "data" / "vocab.npz").read_bytes() == ref
 
 
 @pytest.mark.parametrize("sensor", [Sensor.STEREO, Sensor.MONOCULAR])

@@ -291,10 +291,13 @@ def test_port_map_loads_into_reference(mono_sessions, tmp_path):
 
 
 def test_load_map_with_bow_database_raises(tmp_path):
+    """A map file's BoW database loads with its codebook (since loop
+    closing is ported: tests/test_torch_loop_closing.py); rows without the
+    codebook they were made with are refused."""
     path = str(tmp_path / "db.npz")
     np.savez(path, map_num_kf=np.int32(0), db_vectors=np.zeros((2, 3), np.float32))
     slam = TSystem(port_config(STEREO_CFG), device="cpu", enable_loop_closing=False)
-    with pytest.raises(NotImplementedError, match="P11"):
+    with pytest.raises(ValueError, match="codebook"):
         slam.load_map(path)
 
 
