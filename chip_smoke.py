@@ -66,7 +66,34 @@ Phases, each printing its own lines; any failed check exits non-zero:
    card and on the CPU: the same keyframes, database rows and
    relocalization frame, the relocalized pose and the small session's
    poses within 1e-5 m (the relocalization session's mapping frames
-   within 5e-5 m).
+   within 5e-5 m);
+16. localization mode: the mapping path's 72 frames again, loop closing
+   on (its database is what relocalization searches), then
+   `activate_localization_mode` and `tests/test_system_features.py`'s
+   mbVO turn from frame 71's pose (2.5 degrees a frame to 110, 4 frames
+   held, back to 0). The visual odometry engages on at least one frame,
+   no keyframe is made, K1 is launched in every odometry frame and K2 in
+   the frame that relocalizes, and the last frame is out of mbVO within
+   0.15 m of its ground truth; it prints the odometry and relocalizing
+   frames' ms, the odometry steps that tracked and how far each frame's
+   rotation is from orthonormal;
+17. a shorter localization session at the 320x240 configuration (10
+   mapping frames, the turn to 70 degrees and back in three steps) on the
+   card and on the CPU: the same mbVO flags and states per frame, the
+   frames tracked on the map within 5 mm and 0.2 degrees, and each
+   odometry step of the card within 1e-4 m and 5e-3 degrees of the CPU's
+   step from the card's own state, with at least 5 steps tracked;
+18. the command-line runner: 40 dolly frames at 640x480 written as a TUM
+   RGB-D directory (8-bit RGB PNGs, 16-bit depth at 5000 counts per
+   metre, `rgb.txt`, `depth.txt`, `groundtruth.txt`, an ORB-SLAM2 YAML of
+   bench.py's camera), then `python -m orbslam2_tpu_torch.run --dataset
+   tum ... --viz` in a child process on the card: every frame tracked,
+   ATE < 0.01 m, the native decoder in use (else its build error printed
+   and the phase failed), the PNG snapshots written;
+19. the essential graph's PCG solve at 160 keyframes (past
+   `pose_graph_dense_max_k`, 128, where the loop closer switches to it)
+   on the card against the CPU, packs within 1e-4 up to each
+   quaternion's sign.
 
 How a kernel is timed, at each shape: `ms` is its device time, 50
 launches into preallocated outputs captured in one CUDA graph and the
@@ -79,7 +106,7 @@ never calls; `bound_ms` the larger of its bytes over 3.35 TB/s and its
 operations over the peak rate of their type.
 
 The launch counts are set to 0 just before each path is driven and read
-just after; the kernels line sums the seven paths and gives each path's
+just after; the kernels line sums the eight paths and gives each path's
 counts. The last two lines are that JSON object of the kernels' launch
 counts, errors and times, and the JSON result line. Exits non-zero,
 printing no result, when no CUDA device is available.
@@ -148,6 +175,32 @@ LOOP_CPU_DT_M = 1e-5       # the loop-closing session, and the relocalized frame
 # local BA at 640x480 drift 1.62e-5 m card against CPU by frame 19
 # (measured on an NVIDIA H100 80GB HBM3 at 700 W)
 RELOC_CPU_DT_M = 5e-5
+# tests/test_system_features.py::test_localization_mbvo_blackout_and_recovery:
+# degrees of yaw from the last mapped frame's pose
+LOC_YAWS = tuple(float(y) for y in (list(np.arange(2.5, 111, 2.5)) + [110.0] * 4
+                                    + list(np.arange(107.5, -0.1, -2.5))))
+LOC_ERR_M = 0.15
+# the card against the CPU at 320x240: the first 28 frames of that
+# schedule (to 70 degrees), where the odometry takes over from coarse
+# tracking at 52.5 degrees and tracks seven steps, then back to 60, 50 and
+# 40 degrees: it loses the 10-degree steps and relocalization takes over
+# at 40. The odometry chain multiplies a pose difference about 2.4-fold a
+# frame (its rotations drift off SO(3), ROADMAP queue 3;
+# `tools/odometry_sensitivity.py`), so its steps are held one at a time,
+# each from the card's own state.
+SMALL_LOC_MAP_FRAMES = 10
+SMALL_LOC_YAWS = LOC_YAWS[:28] + (60.0, 50.0, 40.0)
+# one odometry step, the card against the CPU from the card's state: the
+# same matches give the pose to float32 rounding (K2 is within 3.4e-7 of
+# its plain version); the bars leave room for one match or inlier decided
+# the other way at its gate (~1/150 of a pixel's worth at 3 m). The pose
+# compared is the one the step keeps.
+VO_STEP_DT_M, VO_STEP_DEG, VO_STEP_INLIERS = 1e-4, 5e-3, 2
+VO_MIN_STEPS = 5
+CLI_FRAMES = 40
+CLI_ATE_LIMIT_M = 0.01
+PCG_KEYFRAMES = 160        # past the loop closer's pose_graph_dense_max_k (128)
+TOL_PCG = 1e-4
 
 
 def fail(msg: str) -> None:
@@ -428,7 +481,7 @@ def bench_config(width: int = 640, height: int = 480, features: int = 1000,
                  keyframes: int = 96, ba_points: int = 4096, ba_local: int = 24,
                  ba_fixed: int = 16):
     """bench.py's camera, ORB, map and local-BA sizes and its loop-closing
-    warm-up, synchronous."""
+    and relocalization warm-ups, synchronous."""
     from orbslam2_tpu_torch import config as c
 
     s = width / 640.0
@@ -444,8 +497,9 @@ def bench_config(width: int = 640, height: int = 480, features: int = 1000,
         solver=c.SolverConfig(ba_max_points=ba_points, local_ba_iters_first=3,
                               local_ba_iters_second=4, ba_max_local_kfs=ba_local,
                               ba_max_fixed_kfs=ba_fixed),
-        # bench.py:104: the correction chain runs once at session start
-        vocab=c.VocabConfig(warmup_correction=True),
+        # bench.py:104: the correction and relocalization chains run once
+        # at session start
+        vocab=c.VocabConfig(warmup_correction=True, warmup_reloc=True),
     )
 
 
@@ -486,16 +540,31 @@ _SEQS: dict = {}
 _ONE_THREAD = {"OPENBLAS_NUM_THREADS": "1", "OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1"}
 
 
+def yawed_poses(base, yaws) -> np.ndarray:
+    """`base` turned about the camera's y axis by each of `yaws` degrees."""
+    out = []
+    for yaw in yaws:
+        a = np.radians(yaw)
+        T = np.eye(4)
+        T[:3, :3] = [[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]]
+        out.append(T @ base)
+    return np.stack(out)
+
+
 def _sequence(spec):
-    """The synthetic sequence of `spec` = (n_frames, kind, camera, revisit):
-    `revisit` frames of the start appended to the poses (the orbits)."""
+    """The synthetic sequence of `spec` = (n_frames, kind, camera, revisit)
+    or (n_frames, kind, camera, revisit, yaws): `revisit` frames of the
+    start appended to the poses (the orbits); with `yaws`, the poses are
+    instead the last frame's turned by each of them (localization mode)."""
     from orbslam2_tpu_torch import synthetic
 
     if spec not in _SEQS:
-        n_frames, kind, cam, revisit = spec
+        n_frames, kind, cam, revisit, *turn = spec
         seq = synthetic.textured_sequence(n_frames=n_frames, kind=kind, seed=0, cam=cam)
         if revisit:
             seq = dataclasses.replace(seq, poses=np.concatenate([seq.poses, seq.poses[:revisit]]))
+        if turn:
+            seq = dataclasses.replace(seq, poses=yawed_poses(seq.poses[-1], turn[0]))
         _SEQS[spec] = seq
     return _SEQS[spec]
 
@@ -604,11 +673,27 @@ def check_main_path(device) -> dict:
     return {"launches": launches, "ate_m": ate, "fps": fps, "frames": N_FRAMES}
 
 
+def nearest_rotation(R: np.ndarray) -> np.ndarray:
+    """The rotations nearest to [..., 3, 3] matrices (SVD, float64)."""
+    U, _, Vt = np.linalg.svd(np.asarray(R, np.float64))
+    return U @ Vt
+
+
 def pose_gaps(pa, pb):
-    """Per-frame translation (m) and rotation (deg) between two pose lists."""
-    dt = np.linalg.norm(pa[:, :3, 3] - pb[:, :3, 3], axis=1)
-    R = np.einsum("nji,njk->nik", pa[:, :3, :3], pb[:, :3, :3])
-    deg = np.degrees(np.arccos(np.clip((np.trace(R, axis1=1, axis2=2) - 1) / 2, -1, 1)))
+    """Per-frame translation (m) and rotation (deg) between two pose lists.
+    The angle is that of R_a^T R_b after each rotation is projected onto
+    SO(3): the tracked poses are float32 products that drift off it (by up
+    to 5e-4 in the odometry's frames), and the float32 arccos of the
+    trace reads that drift as tenths of a degree of rotation. A frame
+    whose pose is not finite in either list (a lost odometry frame's
+    extrapolation can overflow) gets NaN for both."""
+    pa, pb = np.asarray(pa, np.float64), np.asarray(pb, np.float64)
+    ok = np.isfinite(pa).all(axis=(1, 2)) & np.isfinite(pb).all(axis=(1, 2))
+    dt, deg = np.full(len(pa), np.nan), np.full(len(pa), np.nan)
+    dt[ok] = np.linalg.norm(pa[ok, :3, 3] - pb[ok, :3, 3], axis=1)
+    R = np.einsum("nji,njk->nik", nearest_rotation(pa[ok, :3, :3]),
+                  nearest_rotation(pb[ok, :3, :3]))
+    deg[ok] = np.degrees(np.arccos(np.clip((np.trace(R, axis1=1, axis2=2) - 1) / 2, -1, 1)))
     return dt, deg
 
 
@@ -1203,6 +1288,321 @@ def check_loop_cpu_agreement(device) -> None:
     compare("small relocalization session", g, c, tg is not None and tg == tc, RELOC_CPU_DT_M)
 
 
+def run_localization_session(cfg, n_map: int, yaws, device):
+    """`n_map` frames of the dolly with mapping and loop closing on, then
+    `activate_localization_mode` and the last mapped frame's pose turned by
+    each of `yaws` degrees, every frame through `track_rgbd`. The launch
+    counts are set to 0 after the mapping frames. Returns (slam, the turned
+    sequence, keyframes before localization, per localization frame its
+    mbVO flag, state, ms and launches, the launches over those frames)."""
+    from orbslam2_tpu_torch import kernels
+
+    slam, _, _ = run_session(cfg, n_map, device, mapping=True, loop_closing=True)
+    n_kf = slam.num_keyframes()
+    spec = (n_map, "forward", cfg.camera, 0, tuple(yaws))
+    turn = _sequence(spec)
+    a, b = staged(render(spec, range(len(yaws))), device)
+    slam.activate_localization_mode()
+    kernels.launch_counts.update(hamming=0, pose_gn=0)
+    frames, secs = [], []
+    for j in range(len(yaws)):
+        before = dict(kernels.launch_counts)
+        timed_track(slam, a[j], b[j], n_map + j, secs)
+        frames.append(dict(vo=bool(slam.tracker.mb_vo), state=slam.results[-1].state.name,
+                           ms=1000 * secs[-1],
+                           launches={k: kernels.launch_counts[k] - before[k] for k in before}))
+    return slam, turn, n_kf, frames, dict(kernels.launch_counts)
+
+
+def check_localization_path(device) -> dict:
+    """Localization mode at bench.py's configuration after the mapping
+    path's 72 frames: the mbVO turn of `tests/test_system_features.py`."""
+    cfg = bench_config()
+    slam, turn, n_kf, frames, launches = run_localization_session(cfg, MAP_FRAMES, LOC_YAWS,
+                                                                  device)
+    vo = [f["vo"] for f in frames]
+    vo_frames = [j for j, v in enumerate(vo) if v]
+    reloc = [j for j in range(1, len(vo)) if vo[j - 1] and not vo[j]]
+    err = float(np.linalg.norm((slam.results[-1].Tcw @ np.linalg.inv(turn.poses[-1]))[:3, 3]))
+    n_kf_after = slam.num_keyframes()
+    # the odometry's own steps (mbVO frames that followed an mbVO or a lost
+    # frame; the resolve enters mbVO from coarse tracking) and how far each
+    # frame's rotation is from orthonormal (ROADMAP queue 3)
+    steps = [j for j in vo_frames if j > 0 and (vo[j - 1] or frames[j - 1]["state"] == "LOST")]
+    vo_ok = [j for j in steps if frames[j]["state"] == "OK"]
+    R = np.stack([r.Tcw for r in slam.results[-len(frames):]])[:, :3, :3].astype(np.float64)
+    off_so3 = np.abs(np.einsum("nji,njk->nik", R, R) - np.eye(3)).max(axis=(1, 2))
+    entry = vo_frames[0] if vo_frames else 0
+    vo_ms = [frames[j]["ms"] for j in vo_frames]
+    reloc_ms = [frames[j]["ms"] for j in reloc]
+    print(f"localization path: {n_kf} keyframes mapped, {n_kf_after} after {len(frames)} "
+          f"localization frames; mbVO on frames {vo_frames}; relocalized out of it at "
+          f"{reloc}; states {[f['state'][0] for f in frames]}; last frame {err:.5f} m from "
+          f"its ground truth, mbVO {vo[-1]}", flush=True)
+    print(f"localization path: {len(vo_ok)} of {len(steps)} odometry steps tracked (frames "
+          f"{vo_ok}); max |R^T R - I| {max(off_so3[:entry], default=0):.1e} "
+          f"before mbVO, {off_so3[entry]:.1e} at its entry; per frame "
+          f"{[float(f'{x:.1e}') for x in off_so3]}", flush=True)
+    print(f"localization path: mbVO frames ms median "
+          f"{np.median(vo_ms) if vo_ms else float('nan'):.2f} (min "
+          f"{min(vo_ms, default=float('nan')):.2f}, max {max(vo_ms, default=float('nan')):.2f}); "
+          f"relocalizing frames ms {[round(x, 2) for x in reloc_ms]}; other frames ms median "
+          f"{np.median([f['ms'] for f in frames if not f['vo']]):.2f}", flush=True)
+    print(f"localization path: launches per mbVO frame "
+          f"{[frames[j]['launches']['hamming'] for j in vo_frames]} (K1), per relocalizing "
+          f"frame {[frames[j]['launches'] for j in reloc]}; launches {launches} over "
+          f"{len(frames)} frames", flush=True)
+    if not vo_frames:
+        fail("localization path: mbVO never engaged")
+    if n_kf_after != n_kf:
+        fail(f"localization path: {n_kf} keyframes became {n_kf_after}")
+    if vo[-1] or not err < LOC_ERR_M:
+        fail(f"localization path: mbVO {vo[-1]} at the end, error {err} m")
+    if min(frames[j]["launches"]["hamming"] for j in vo_frames) < 1:
+        fail("localization path: an mbVO frame launched no K1")
+    if not reloc or frames[reloc[-1]]["launches"]["pose_gn"] < 1:
+        fail(f"localization path: relocalizing frames {reloc} launched no K2")
+    return {"launches": launches, "frames": len(frames), "vo_frames": len(vo_frames),
+            "vo_frame_ms": float(np.median(vo_ms)), "reloc_frame_ms": reloc_ms,
+            "k1_per_vo_frame": [frames[j]["launches"]["hamming"] for j in vo_frames],
+            "k2_in_relocalizing_frame": frames[reloc[-1]]["launches"]["pose_gn"], "t_err_m": err,
+            "odometry_steps_tracked": len(vo_ok)}
+
+
+def frame_to(frame, device):
+    """A FrameData with its tensors on `device`."""
+    return type(frame)(*(x.to(device) if isinstance(x, torch.Tensor) else x for x in frame))
+
+
+def check_localization_cpu_agreement(device) -> None:
+    """The small localization session at 320x240 on the card and on the
+    CPU: the same mbVO flags and states per frame, and the frames tracked
+    against the map (before the odometry and after relocalization) within
+    5 mm and 0.2 degrees. Every odometry step of the card is held to the
+    CPU's step from the card's own state (last frame, last pose,
+    velocity): the pose the step keeps (the optimised pose when it
+    tracks, else the motion model's prediction; the optimisation of a
+    lost step rests on a handful of inliers and is discarded) within
+    VO_STEP_DT_M and VO_STEP_DEG, the inlier counts within
+    VO_STEP_INLIERS."""
+    from orbslam2_tpu_torch.pipeline import tracking
+
+    cpu = torch.device("cpu")
+    plain, steps = tracking.Tracker.visual_odometry, []
+
+    def recorded(self, frame, last_frame, last_Tcw, velocity):
+        out = plain(self, frame, last_frame, last_Tcw, velocity)
+        steps.append((frame, last_frame, last_Tcw, velocity, out))
+        return out
+
+    def kept(out, min_track):
+        """The pose a step keeps, its inliers and its optimised pose."""
+        Tcw_pred, r = out
+        n_inl = int(r.num_inliers)
+        T = r.Tcw if n_inl >= min_track else Tcw_pred
+        return T.cpu().numpy()[None], n_inl, r.Tcw.cpu().numpy()[None]
+
+    tracking.Tracker.visual_odometry = recorded
+    try:
+        g, _, kg, fg, _ = run_localization_session(small_config(), SMALL_LOC_MAP_FRAMES,
+                                                   SMALL_LOC_YAWS, device)
+    finally:
+        tracking.Tracker.visual_odometry = plain
+    c, _, kc, fc, _ = run_localization_session(small_config(), SMALL_LOC_MAP_FRAMES,
+                                               SMALL_LOC_YAWS, cpu)
+    n = len(SMALL_LOC_YAWS)
+    pg = np.stack([r.Tcw for r in g.results[-n:]])
+    pc = np.stack([r.Tcw for r in c.results[-n:]])
+    vg, vc = [f["vo"] for f in fg], [f["vo"] for f in fc]
+    sg, sc = [f["state"] for f in fg], [f["state"] for f in fc]
+    on_map = np.asarray([s_ == "OK" and not v for s_, v in zip(sg, vg)])
+    dt, deg = pose_gaps(pg[on_map], pc[on_map])
+    min_track = c.cfg.tracking.min_inliers_track
+    step_dt, step_deg, step_inl, n_inls, opt_dt = [], [], [], [], []
+    for frame, lf, lT, vel, out in steps:
+        Tg, ng, opt_g = kept(out, min_track)
+        Tc, nc, opt_c = kept(c.tracker.visual_odometry(
+            frame_to(frame, cpu), frame_to(lf, cpu), lT.cpu(), None if vel is None else vel.cpu()),
+            min_track)
+        gap_t, gap_r = pose_gaps(Tg, Tc)
+        step_dt.append(float(gap_t[0]))
+        step_deg.append(float(gap_r[0]))
+        step_inl.append(ng - nc)
+        n_inls.append(ng)
+        opt_dt.append(float(pose_gaps(opt_g, opt_c)[0][0]))
+    tracked = sum(n >= min_track for n in n_inls)
+    print(f"small localization session, card vs CPU: mbVO frames "
+          f"{[j for j, v in enumerate(vg) if v]} / {[j for j, v in enumerate(vc) if v]}, states "
+          f"{''.join(x[0] for x in sg)} / {''.join(x[0] for x in sc)}, keyframes {kg} / {kc}; "
+          f"frames on the map max dt {dt.max():.3e} m, max rot {deg.max():.3e} deg", flush=True)
+    print(f"small localization session: {len(steps)} odometry steps ({tracked} tracked; inliers "
+          f"{n_inls}), each from the card's state, card vs CPU: the kept pose's dt m "
+          f"{[float(f'{x:.2e}') for x in step_dt]}, rot deg "
+          f"{[float(f'{x:.2e}') for x in step_deg]}, inliers card - CPU {step_inl}; the optimised "
+          f"pose's dt m {[float(f'{x:.2e}') for x in opt_dt]}; the whole chain's poses apart by up "
+          f"to {np.nanmax(pose_gaps(pg, pc)[0]):.3e} m", flush=True)
+    if not (vg == vc and sg == sc and kg == kc and dt.max() < SMALL_DT_M
+            and deg.max() < SMALL_DEG):
+        fail("the card and the CPU disagree on the small localization session")
+    if tracked < VO_MIN_STEPS or not (np.max(step_dt) < VO_STEP_DT_M
+                                      and np.max(step_deg) < VO_STEP_DEG
+                                      and max(map(abs, step_inl)) <= VO_STEP_INLIERS):
+        fail(f"small localization session: {tracked} odometry steps tracked, or a step of the "
+             f"card away from the CPU's")
+
+
+def write_tum_directory(root, seq, frames, cam) -> None:
+    """`frames` ((image, depth) each) in TUM RGB-D's layout under `root`,
+    with the ground truth of `seq` and an ORB-SLAM2 YAML of `cam`."""
+    from PIL import Image
+
+    from orbslam2_tpu_torch import trajectory
+
+    os.makedirs(os.path.join(root, "rgb"))
+    os.makedirs(os.path.join(root, "depth"))
+    stamps = 1000.0 + np.arange(len(frames)) / 30.0
+    for t, (img, depth) in zip(stamps, frames):
+        g = np.clip(img, 0, 255).astype(np.uint8)
+        Image.fromarray(np.stack([g] * 3, axis=-1)).save(os.path.join(root, "rgb", f"{t:.6f}.png"))
+        d16 = np.clip(depth * 5000.0, 0, 65535).astype(np.uint16)
+        Image.fromarray(d16).save(os.path.join(root, "depth", f"{t:.6f}.png"))
+    for name, sub in (("rgb.txt", "rgb"), ("depth.txt", "depth")):
+        with open(os.path.join(root, name), "w") as f:
+            f.write(f"# {sub}\n" + "".join(f"{t:.6f} {sub}/{t:.6f}.png\n" for t in stamps))
+    trajectory.save_tum(os.path.join(root, "groundtruth.txt"), stamps, seq.poses[:len(frames)])
+    with open(os.path.join(root, "settings.yaml"), "w") as f:
+        f.write("%YAML:1.0\n"
+                f"Camera.fx: {cam.fx}\nCamera.fy: {cam.fy}\nCamera.cx: {cam.cx}\n"
+                f"Camera.cy: {cam.cy}\nCamera.bf: {cam.bf}\nCamera.fps: {cam.fps}\n"
+                f"Camera.width: {cam.width}\nCamera.height: {cam.height}\n"
+                "ORBextractor.nFeatures: 1000\nThDepth: 40.0\nDepthMapFactor: 5000.0\n")
+
+
+def check_cli_path(device) -> dict:
+    """`python -m orbslam2_tpu_torch.run --dataset tum` on a directory of
+    CLI_FRAMES dolly frames at bench.py's camera, in a child process on
+    the card."""
+    import tempfile
+
+    from orbslam2_tpu_torch import evaluation, native, trajectory
+
+    if not native.native_available():
+        print(f"CLI path: the native decoder did not build: {native.build_error()}", flush=True)
+        fail("CLI path: the native decoder is not available")
+    cam = bench_config().camera
+    spec = (CLI_FRAMES, "forward", cam, 0)
+    seq = _sequence(spec)
+    here = os.path.dirname(os.path.abspath(__file__))
+    scratch = os.path.join(here, "orbslam2_tpu_torch", "_build")
+    os.makedirs(scratch, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        root = os.path.join(tmp, "tum")
+        write_tum_directory(root, seq, render(spec, range(CLI_FRAMES)), cam)
+        out, viz = os.path.join(tmp, "traj.txt"), os.path.join(tmp, "viz")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "orbslam2_tpu_torch.run", "--dataset", "tum", "--root", root,
+             "--settings", os.path.join(root, "settings.yaml"), "--out", out, "--viz", viz,
+             "--device", device.type], cwd=here, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            print(proc.stderr[-4000:], flush=True)
+            fail(f"CLI path: the runner exited {proc.returncode}")
+        res = json.loads(proc.stdout.strip().splitlines()[-1])
+        ts, poses = trajectory.load_tum(out)
+        pngs = sorted(os.listdir(viz))
+    idx = np.round((np.asarray(ts) - 1000.0) * 30.0).astype(int)
+    ate = float(evaluation.ate_rmse(poses, seq.poses[idx], align=True))
+    print(f"CLI path: {res}", flush=True)
+    print(f"CLI path: {len(ts)}/{CLI_FRAMES} frames in the trajectory, ATE {ate:.5f} m, "
+          f"snapshots {pngs}, {wall:.1f} s for the child process", flush=True)
+    if res["decoder"] != "native":
+        print(f"CLI path: decoder error {res['decoder_error']}", flush=True)
+        fail(f"CLI path: decoder {res['decoder']}")
+    if res["device"] != torch.cuda.get_device_name(device):
+        fail(f"CLI path: ran on {res['device']}")
+    if not (res["frames"] == len(ts) == CLI_FRAMES and res["state"] == "OK"):
+        fail(f"CLI path: {res['frames']} frames, {len(ts)} tracked, state {res['state']}")
+    if not ate < CLI_ATE_LIMIT_M:
+        fail(f"CLI path: ATE {ate} >= {CLI_ATE_LIMIT_M}")
+    if not ("frame_00000.png" in pngs and "map_00000.png" in pngs):
+        fail(f"CLI path: snapshots {pngs}")
+    return {"ate_m": ate, "fps": res["fps"], "frames": res["frames"], "wall_s": wall}
+
+
+def ring_problem(device, n: int, chord: int, seed: int = 0):
+    """A drifted ring of `n` keyframes with its loop edge and one chord
+    (keyframe 3 to `chord`), built by the port on the CPU (with `n` even, a
+    vertex at pi about z, where each package may pack its rotation as q or
+    -q), then moved to `device`."""
+    from orbslam2_tpu_torch.geometry import se3
+    from orbslam2_tpu_torch.solvers import pose_graph
+
+    g = torch.Generator().manual_seed(seed)
+    gt = torch.stack([se3.exp_se3(torch.tensor([np.cos(2 * np.pi * i / n), np.sin(2 * np.pi * i / n),
+                                                0, 0, 0, 2 * np.pi * i / n], dtype=torch.float32))
+                      for i in range(n)])
+    est = torch.stack([gt[0]] + [se3.exp_se3(0.003 * i * torch.randn(6, generator=g)) @ gt[i]
+                                 for i in range(1, n)])
+    ei = list(range(n - 1)) + [n - 1, 3]
+    ej = list(range(1, n)) + [0, chord]
+    meas = torch.stack([pose_graph.se3_to_pack(gt[b] @ se3.inverse(gt[a])) for a, b in zip(ei, ej)])
+    fixed = torch.zeros(n, dtype=torch.bool)
+    fixed[0] = True
+    prob = pose_graph.PoseGraphProblem(
+        vertices=pose_graph.se3_to_pack(est), vertex_valid=torch.ones(n, dtype=torch.bool),
+        vertex_fixed=fixed, edge_i=torch.tensor(ei, dtype=torch.int32),
+        edge_j=torch.tensor(ej, dtype=torch.int32), edge_meas=meas,
+        edge_valid=torch.ones(len(ei), dtype=torch.bool),
+        edge_weight=torch.tensor([1.0] * (n - 1) + [5.0, 1.0]))
+    return pose_graph.PoseGraphProblem(*(x.to(device) for x in prob))
+
+
+def sign_aligned(a, b) -> torch.Tensor:
+    """`a`'s packed sim3s [..., 8] = (s, q, t), float64 on the CPU, each
+    quaternion given the sign of its dot product with `b`'s: q and -q are
+    one rotation, and `rot_to_quat` picks between them on the sign of a
+    rounding residue where qw is near 0 (a rotation near pi)."""
+    a, b = torch.as_tensor(a).double().cpu(), torch.as_tensor(b).double().cpu()
+    sign = torch.where(torch.sum(a[..., 1:5] * b[..., 1:5], dim=-1, keepdim=True) < 0, -1.0, 1.0)
+    return torch.cat([a[..., :1], a[..., 1:5] * sign, a[..., 5:]], dim=-1)
+
+
+def packs_gap(a, b) -> float:
+    """Largest difference of two packed sim3 arrays, up to each
+    quaternion's sign."""
+    return float((sign_aligned(a, b) - torch.as_tensor(b).double().cpu()).abs().max())
+
+
+def check_pcg(device) -> None:
+    """The essential graph's PCG solve, as the loop closer calls it past
+    `pose_graph_dense_max_k`, on the card against the CPU."""
+    from orbslam2_tpu_torch.config import SolverConfig
+    from orbslam2_tpu_torch.solvers import pose_graph
+
+    sc = SolverConfig()
+    if not PCG_KEYFRAMES > sc.pose_graph_dense_max_k:
+        fail(f"PCG: {PCG_KEYFRAMES} keyframes would take the dense solve")
+    out = {}
+    for d in (device, torch.device("cpu")):
+        prob = ring_problem(d, PCG_KEYFRAMES, PCG_KEYFRAMES // 2)
+        t0 = time.perf_counter()
+        out[d.type] = pose_graph.optimize_pose_graph_pcg(prob, iters=sc.pose_graph_iters,
+                                                         cg_iters=sc.pose_graph_cg_iters)
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+        out[d.type + "_s"] = time.perf_counter() - t0
+    gap = packs_gap(out["cuda"], out["cpu"])
+    start = ring_problem("cpu", PCG_KEYFRAMES, PCG_KEYFRAMES // 2).vertices
+    moved = packs_gap(out["cpu"], start)
+    print(f"PCG essential graph, {PCG_KEYFRAMES} keyframes ({sc.pose_graph_iters} iterations, "
+          f"{sc.pose_graph_cg_iters} CG): card vs CPU max gap {gap:.3e} (the solve moved the "
+          f"packs by up to {moved:.3e}); {out['cuda_s']:.2f} s on the card, {out['cpu_s']:.2f} s "
+          f"on the CPU", flush=True)
+    if not (torch.isfinite(out["cuda"]).all() and gap <= TOL_PCG and moved > 10 * TOL_PCG):
+        fail(f"PCG: card vs CPU gap {gap}, moved {moved}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -1254,12 +1654,18 @@ def run_phases(device, card: str) -> None:
                                 must_close=True)
     check_loop_cpu_agreement(device)
     print(f"loop-closing phases: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    localization = check_localization_path(device)
+    check_localization_cpu_agreement(device)
+    cli = check_cli_path(device)
+    check_pcg(device)
+    print(f"localization, CLI and PCG phases: {time.perf_counter() - t0:.1f} s", flush=True)
 
     if "jax" in sys.modules:
         fail("jax was imported")
-    paths = (main_path, mapping, stereo_path, mono_path, reloc, orbit640, orbit320)
+    paths = (main_path, mapping, stereo_path, mono_path, reloc, orbit640, orbit320, localization)
     names = ("rgbd_tracking", "rgbd_mapping", "stereo_mapping", "mono_mapping",
-             "rgbd_relocalization", "rgbd_orbit_640", "rgbd_orbit_320")
+             "rgbd_relocalization", "rgbd_orbit_640", "rgbd_orbit_320", "rgbd_localization")
     for k, key in ((k1, "hamming"), (k2, "pose_gn")):
         k["launches"] = sum(p["launches"][key] for p in paths)
         k["launches_per_path"] = {name: {"launches": p["launches"][key], "frames": p["frames"]}
@@ -1273,6 +1679,11 @@ def run_phases(device, card: str) -> None:
     for k, key in ((k1, "hamming"), (k2, "pose_gn")):
         k["launches_per_path"]["rgbd_relocalization"]["in_relocalizing_frame"] = \
             reloc["reloc_frame_launches"][key]
+    per["rgbd_localization"]["per_vo_frame"] = localization["k1_per_vo_frame"]
+    k2["launches_per_path"]["rgbd_localization"]["in_relocalizing_frame"] = \
+        localization["k2_in_relocalizing_frame"]
+    print(f"CLI path (a child process; its launches are not counted here): "
+          f"{cli['frames']} frames, ATE {cli['ate_m']:.5f} m, {cli['fps']} frames/s", flush=True)
     for name, p in zip(names, paths):
         print(f"{name}: launches per frame, K1 {p['launches']['hamming'] / p['frames']:.2f}, "
               f"K2 {p['launches']['pose_gn'] / p['frames']:.2f} ({p['frames']} frames)",

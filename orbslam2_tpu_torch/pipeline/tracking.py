@@ -3,8 +3,9 @@
 Port of `orbslam2_tpu.pipeline.tracking`: the matching and local-map
 stages as functions on tensors, and the host-side `Tracker`
 (NOT_INITIALIZED -> OK <-> LOST) that sequences them, with the stereo /
-RGB-D and the monocular (two-view H/F) initializations, and relocalization
-from the loop closer's keyframe database.
+RGB-D and the monocular (two-view H/F) initializations, relocalization
+from the loop closer's keyframe database and its warm-up, and the
+localization-mode visual odometry (mbVO).
 """
 
 from __future__ import annotations
@@ -303,6 +304,9 @@ class Tracker:
         # and the CPU draw the same minimal sets)
         self.init_frame: Optional[FrameData] = None
         self.init_generator = torch.Generator().manual_seed(cfg.seed)
+        # localization mode: the frame-to-frame visual odometry has taken
+        # over from tracking against the frozen map (ORB-SLAM2 mbVO)
+        self.mb_vo = False
         # per-frame trajectory log: (timestamp, Tcr, ref_kf, tracked)
         self.trajectory: list[tuple[float, np.ndarray, int, bool]] = []
 
@@ -442,9 +446,123 @@ class Tracker:
         self._ref_pose_np = T21.cpu().numpy()
         return True
 
-    # -- main entry --------------------------------------------------------
+    # -- localization-mode dual hypothesis (ORB-SLAM2 mbVO) ----------------
+
+    def localization_vo_step(self, frame: FrameData, reloc_db) -> TrackResult:
+        """Localization-mode tracking once the frozen map is out of view
+        (ORB-SLAM2 Tracking::Track, mbVO): relocalization against the map
+        is tried first on every frame and wins when it succeeds; otherwise
+        the pose follows `visual_odometry` from the last frame (its
+        features backprojected from their depth are UpdateLastFrame's
+        temporary points). Nothing is written to the map."""
+        if self.relocalize(frame, reloc_db):
+            self.mb_vo = False
+            Tcw_np = self.last_Tcw.cpu().numpy()
+            self._log_pose(frame, True, Tcw_np)
+            self.last_inliers = max(self.last_inliers, 50)
+            return TrackResult(Tcw_np, self.state, self.last_inliers, False)
+
+        self.mb_vo = True
+        Tcw_pred, r = self.visual_odometry(frame, self.last_frame, self.last_Tcw, self.velocity)
+        n_inl = _host(r.num_inliers)
+        ok = n_inl >= self.cfg.tracking.min_inliers_track
+        Tcw = r.Tcw if ok else Tcw_pred
+        self.velocity = Tcw @ se3.inverse(self.last_Tcw)
+        self.last_Tcw = Tcw
+        self.last_frame = frame
+        self.last_point_idx = torch.full_like(frame.octave, -1)
+        self.last_inliers = n_inl
+        self.state = TrackState.OK if ok else TrackState.LOST
+        Tcw_np = Tcw.cpu().numpy()
+        self._log_pose(frame, ok, Tcw_np)
+        return TrackResult(Tcw_np, self.state, n_inl, False)
+
+    def visual_odometry(self, frame: FrameData, last_frame: FrameData, last_Tcw: torch.Tensor,
+                        velocity: Optional[torch.Tensor]):
+        """One step of the frame-to-frame visual odometry from the given
+        state, which it does not change: `last_frame`'s features with depth
+        backprojected at `last_Tcw`, predicted into `frame` by the motion
+        model, matched by `search_frame_to_frame` (K1 through
+        `match_gated`) and refined by the 4x10 robust pose optimisation.
+        The reference calls the plain `pose_opt.pose_optimize` there; the
+        port calls `pose_optimize_fast`, which on a CUDA tensor is K2 and
+        on a CPU tensor that plain version, the same schedule either way.
+        Returns (the predicted Tcw, the optimisation's result)."""
+        dev = self.device
+        if velocity is None:
+            velocity = torch.eye(4, device=dev)
+        Tcw_pred = velocity @ last_Tcw
+        lf = last_frame
+        pc = cam_geo.backproject(lf.xy, lf.depth, self.K)
+        pw = se3.apply(se3.inverse(last_Tcw), pc)
+        has = lf.valid & (lf.depth > 0)
+        pc_pred = se3.apply(Tcw_pred, pw)
+        uv_pred = cam_geo.project(pc_pred, self.K)
+        nl = self.scale_factors.shape[0]
+        radius = 14.0 * self.scale_factors[_i64(torch.clamp(lf.octave, 0, nl - 1))]
+        res = match.search_frame_to_frame(
+            lf.desc, uv_pred, lf.octave, has & (pc_pred[:, 2] > 0.1), lf.angle,
+            frame.desc, frame.xy, frame.octave, frame.valid, frame.angle,
+            radius, max_dist=self.cfg.tracking.match_max_dist,
+        )
+        assigned = res.assigned
+        S = assigned.shape[0]
+        obs = pose_opt.PoseObservations(
+            pw=pw[_i64(torch.clamp(assigned, 0, S - 1))],
+            uv=frame.xy,
+            ur=frame.ur,
+            inv_sigma2=self.inv_sigma2[_i64(torch.clamp(frame.octave, 0, nl - 1))],
+            mask=(assigned >= 0) & frame.valid,
+        )
+        return Tcw_pred, pose_optimize_fast(Tcw_pred, obs, self.K)
 
     # -- relocalization ----------------------------------------------------
+
+    def warmup_reloc(self, db) -> None:
+        """Run every stage of `relocalize` once, on a dummy frame with no
+        valid feature against the map (no stage writes to it), and discard
+        the results (the reference's `warmup_reloc`, which compiles the
+        same chain): the BoW query, a keyframe match, the EPnP RANSAC on draws
+        from a scratch generator, the pose optimisation and a projection
+        search. What it moves off the first relocalizing frame is
+        first-use cost (kernel and library loads). The tracker's generator,
+        its state and the map are untouched."""
+        if db is None:
+            return
+        st = self.map
+        S = self.cfg.orb.feature_slots
+        dev = self.device
+        f = FrameData(
+            frame_id=0, timestamp=0.0,
+            xy=torch.zeros((S, 2), device=dev),
+            xy_raw=torch.zeros((S, 2), device=dev),
+            ur=torch.full((S,), -1.0, device=dev),
+            depth=torch.full((S,), -1.0, device=dev),
+            octave=torch.zeros((S,), dtype=torch.int32, device=dev),
+            angle=torch.zeros((S,), device=dev),
+            desc=torch.zeros((S, 8), dtype=torch.int32, device=dev),
+            valid=torch.zeros((S,), dtype=torch.bool, device=dev),
+        )
+        vec = bow.bow_vector(f.desc, f.valid, db.codebook)
+        db.query(vec, ~st.kf_valid, 0.0, st.covis)
+        bind = reference_kf_match(st.kf_desc[0], st.kf_point_idx[0], st.kf_angle[0],
+                                  st.kf_feat_valid[0], st.mp_valid, f)
+        pid = _i64(torch.clamp(bind, 0, st.capacity_mp - 1))
+        mask = (bind >= 0) & st.mp_valid[pid]
+        oct_c = _i64(torch.clamp(f.octave, 0, self.inv_sigma2.shape[0] - 1))
+        scratch = torch.Generator().manual_seed(0)
+        epnp.ransac_pnp(st.mp_pos[pid], f.xy, mask, self.inv_sigma2[oct_c], self.K,
+                        epnp.draw_pnp_samples(mask, self.cfg.solver.pnp_ransac_iters, scratch),
+                        min_inliers=self.cfg.solver.pnp_min_inliers)
+        obs = build_pose_observations(bind, f, st.mp_pos, st.mp_valid, self.inv_sigma2)
+        res = pose_optimize_fast(st.kf_Tcw[0], obs, self.K)
+        _, _, lpts, lptsm, _ = gather_local_map(
+            st, st.kf_point_idx[0], max_local_kfs=self.cfg.map.max_local_keyframes,
+            max_local_points=self.cfg.map.max_local_points)
+        search_local_points(st, lpts, lptsm, res.Tcw, bind, f, self.K, self.scale_factors,
+                            self.bounds, 2.5, num_levels=self.cfg.orb.num_levels)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
 
     def draw_pnp_samples(self, mask: torch.Tensor) -> torch.Tensor:
         """The [iters, 6] minimal sets of one EPnP RANSAC, from the

@@ -418,39 +418,36 @@ def _intrinsics_on(K, device):
     return type(K)(*(x.to(device) for x in K))
 
 
-def _chain_problem(device, Kn=24, seed=0):
-    """A drifted ring of Kn keyframes with a loop edge, built by the port."""
-    from orbslam2_tpu_torch.geometry import se3
-    from orbslam2_tpu_torch.solvers import pose_graph
-
-    g = torch.Generator().manual_seed(seed)
-    gt = torch.stack([se3.exp_se3(torch.tensor([np.cos(2 * np.pi * i / Kn), np.sin(2 * np.pi * i / Kn),
-                                                0, 0, 0, 2 * np.pi * i / Kn], dtype=torch.float32))
-                      for i in range(Kn)])
-    est = torch.stack([gt[0]] + [se3.exp_se3(0.003 * i * torch.randn(6, generator=g)) @ gt[i]
-                                 for i in range(1, Kn)])
-    ei = list(range(Kn - 1)) + [Kn - 1, 3]
-    ej = list(range(1, Kn)) + [0, 15]
-    meas = torch.stack([pose_graph.se3_to_pack(gt[b] @ se3.inverse(gt[a])) for a, b in zip(ei, ej)])
-    fixed = torch.zeros(Kn, dtype=torch.bool)
-    fixed[0] = True
-    prob = pose_graph.PoseGraphProblem(
-        vertices=pose_graph.se3_to_pack(est), vertex_valid=torch.ones(Kn, dtype=torch.bool),
-        vertex_fixed=fixed, edge_i=torch.tensor(ei, dtype=torch.int32),
-        edge_j=torch.tensor(ej, dtype=torch.int32), edge_meas=meas,
-        edge_valid=torch.ones(len(ei), dtype=torch.bool),
-        edge_weight=torch.tensor([1.0] * (Kn - 1) + [5.0, 1.0]))
-    return pose_graph.PoseGraphProblem(*(x.to(device) for x in prob))
-
-
 def test_dense_pose_graph_card_matches_cpu(device):
+    from chip_smoke import ring_problem
     from orbslam2_tpu_torch.solvers import pose_graph
 
-    got = pose_graph.optimize_pose_graph(_chain_problem(device), iters=20)
-    ref = pose_graph.optimize_pose_graph(_chain_problem("cpu"), iters=20)
+    got = pose_graph.optimize_pose_graph(ring_problem(device, 24, 15), iters=20)
+    ref = pose_graph.optimize_pose_graph(ring_problem("cpu", 24, 15), iters=20)
     assert float((got.cpu() - ref).abs().max()) <= 1e-4
-    again = pose_graph.optimize_pose_graph(_chain_problem(device), iters=20)
+    again = pose_graph.optimize_pose_graph(ring_problem(device, 24, 15), iters=20)
     assert torch.equal(got, again)
+
+
+def test_pcg_pose_graph_card_matches_cpu(device):
+    """The essential graph's PCG solve at 160 keyframes, past the loop
+    closer's `pose_graph_dense_max_k` (128), with the loop closer's 20
+    iterations of 64 CG steps: the card within 1e-4 of the CPU, each
+    quaternion compared up to its sign (vertex 80 lies at pi about z,
+    where q and -q rest on a rounding residue)."""
+    from chip_smoke import packs_gap, ring_problem
+    from orbslam2_tpu_torch.config import SolverConfig
+    from orbslam2_tpu_torch.solvers import pose_graph
+
+    sc = SolverConfig()
+    assert 160 > sc.pose_graph_dense_max_k
+    got = pose_graph.optimize_pose_graph_pcg(ring_problem(device, 160, 80), iters=sc.pose_graph_iters,
+                                             cg_iters=sc.pose_graph_cg_iters)
+    ref = pose_graph.optimize_pose_graph_pcg(ring_problem("cpu", 160, 80), iters=sc.pose_graph_iters,
+                                             cg_iters=sc.pose_graph_cg_iters)
+    assert torch.isfinite(got).all()
+    assert packs_gap(got, ref) <= 1e-4
+    assert packs_gap(ref, ring_problem("cpu", 160, 80).vertices) > 1e-3
 
 
 def test_global_ba_slice_chains_repeat_bitwise(device, loop_map):

@@ -17,7 +17,9 @@ REPO = Path(__file__).resolve().parent.parent
 def test_port_imports_no_jax():
     """Neither jax nor any module of the reference package is loaded by the
     port's session, its converters, its kernels, its loop-closing and
-    relocalization modules or `chip_smoke.py`."""
+    relocalization modules, its dataset loaders, native decoder, drawers,
+    profiling and command-line runner, `chip_smoke.py` or the tool that
+    times the relocalization warm-up."""
     code = (
         "import sys\n"
         "import orbslam2_tpu_torch.pipeline.system, orbslam2_tpu_torch.convert, "
@@ -27,6 +29,9 @@ def test_port_imports_no_jax():
         "orbslam2_tpu_torch.solvers.horn, orbslam2_tpu_torch.solvers.sim3_opt, "
         "orbslam2_tpu_torch.solvers.pose_graph, orbslam2_tpu_torch.solvers.sym_eigh, "
         "orbslam2_tpu_torch.geometry.sim3\n"
+        "import orbslam2_tpu_torch.datasets, orbslam2_tpu_torch.native, "
+        "orbslam2_tpu_torch.viz.drawers, orbslam2_tpu_torch.profiling, orbslam2_tpu_torch.run, "
+        "tools.reloc_warmup_timing\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
         "ref = sorted(m for m in sys.modules if m.split('.')[0] == 'orbslam2_tpu')\n"
         "assert not ref, ref\n"
@@ -60,15 +65,25 @@ COPIES = [
     ("orbslam2_tpu/io/trajectory.py", "orbslam2_tpu_torch/trajectory.py"),
     ("orbslam2_tpu/utils/evaluation.py", "orbslam2_tpu_torch/evaluation.py"),
     ("orbslam2_tpu/utils/eventlog.py", "orbslam2_tpu_torch/eventlog.py"),
+    ("orbslam2_tpu/io/datasets.py", "orbslam2_tpu_torch/datasets.py"),
+]
+# the copies' references to the reference package, and the port's names
+# for them
+RENAMES = [
+    ("from orbslam2_tpu.config import", "from orbslam2_tpu_torch.config import"),
+    ("from orbslam2_tpu.native import", "from orbslam2_tpu_torch.native import"),
+    ("from orbslam2_tpu.io.trajectory import", "from orbslam2_tpu_torch.trajectory import"),
+    ("orbslam2_tpu/native/image_io.cc", "orbslam2_tpu_torch/native/image_io.cc"),
 ]
 
 
 @pytest.mark.parametrize("ref,copy", COPIES, ids=[c[1].split("/")[-1] for c in COPIES])
 def test_copied_module_equals_reference(ref, copy):
     """Each copy is its original line for line, but for its three-line
-    header and its imports of the other copies."""
-    want = (REPO / ref).read_text().replace("from orbslam2_tpu.config import",
-                                            "from orbslam2_tpu_torch.config import")
+    header and its references to the port's own copies and modules."""
+    want = (REPO / ref).read_text()
+    for old, new in RENAMES:
+        want = want.replace(old, new)
     got = (REPO / copy).read_text().split("\n", 3)
     assert all(line.startswith("# ") for line in got[:3])
     assert got[3] == want
@@ -97,6 +112,21 @@ def test_cuda_session_raises_without_gpu():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         System(SlamConfig(), device="cuda", enable_mapping=False, enable_loop_closing=False)
+
+
+def test_cli_on_cuda_fails_without_gpu(tmp_path):
+    """`python -m orbslam2_tpu_torch.run` defaults to the CUDA device, and
+    without one exits non-zero before tracking a frame; it does not fall
+    back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    for extra in ([], ["--device", "cuda"]):
+        out = tmp_path / "traj.txt"
+        res = subprocess.run([sys.executable, "-m", "orbslam2_tpu_torch.run", "--dataset",
+                              "synthetic", "--frames", "2", "--out", str(out), *extra],
+                             cwd=REPO, capture_output=True, text=True, timeout=300)
+        assert res.returncode != 0
+        assert "no CUDA device" in res.stderr and res.stdout == "" and not out.exists()
 
 
 def test_cuda_session_refuses_more_slots_than_the_pose_kernel_takes():
@@ -147,13 +177,18 @@ def test_vocabulary_copy_equals_reference():
     assert (REPO / "orbslam2_tpu_torch" / "data" / "vocab.npz").read_bytes() == ref
 
 
-@pytest.mark.parametrize("sensor", [Sensor.STEREO, Sensor.MONOCULAR])
+@pytest.mark.parametrize("sensor", [Sensor.STEREO, Sensor.MONOCULAR, Sensor.RGBD])
 def test_session_constructs_for_sensor(sensor):
+    """Every sensor's CPU session constructs, and localization mode is
+    ported: it switches on and off, and the tracker reports the
+    odometry's flag."""
     slam = System(SlamConfig(sensor=sensor), device="cpu", enable_loop_closing=False)
     assert slam.cfg.sensor == sensor
     assert slam.num_keyframes() == 0
-    with pytest.raises(NotImplementedError):
-        slam.activate_localization_mode()
+    slam.activate_localization_mode()
+    assert slam.localization_only and slam.tracker.mb_vo is False
+    slam.deactivate_localization_mode()
+    assert not slam.localization_only
 
 
 @pytest.mark.parametrize("sensor", [Sensor.RGBD, Sensor.STEREO, Sensor.MONOCULAR])

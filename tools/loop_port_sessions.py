@@ -12,7 +12,9 @@ keyframes and their frames, points, the Sim3 verifications and the wall
 time. With OUT.json, the whole record goes there as well: every keyframe
 decision with its inputs, every verification, the per-frame poses and
 seconds, so two runs (the card and the CPU) can be compared decision by
-decision.
+decision, and against the reference's record of the 640x480 orbit
+(`tools/orbit_reference_decisions.py compare`): `tracked_poses` are the
+poses `track_rgbd` returned, before any later correction.
 """
 
 from __future__ import annotations
@@ -50,7 +52,9 @@ def main():
         with open(out_path, "w") as f:
             json.dump(dict(summary, decisions=rec["decisions"], secs=rec["secs"],
                            slice_frames=rec["slice_frames"], poses=poses.tolist(),
-                           tracked=tracked.tolist()), f)
+                           tracked=tracked.tolist(),
+                           tracked_poses=[r.Tcw.tolist() for r in rec["slam"].results],
+                           gt_poses=rec["seq"].poses.tolist()), f)
 
 
 if __name__ == "__main__":
