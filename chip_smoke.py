@@ -93,7 +93,23 @@ Phases, each printing its own lines; any failed check exits non-zero:
 19. the essential graph's PCG solve at 160 keyframes (past
    `pose_graph_dense_max_k`, 128, where the loop closer switches to it)
    on the card against the CPU, packs within 1e-4 up to each
-   quaternion's sign.
+   quaternion's sign;
+20. the multi-device slice and the graft entry points: `graft_entry.entry()`'s
+   per-frame function on the card against the port on the CPU, on its
+   example arguments and on a rendered frame with map points made from
+   its own features (the same inliers, more than 100 on the frame, Tcw
+   within 1e-4, at least 99 % of the descriptors equal), K1 and K2
+   launched in both calls; then this process as the one rank of an NCCL
+   group at bench_scaling.py's sizes: the sharded BA's direct solve equal
+   to `bundle_adjust` to the bit over 10 iterations, the PCG solve's first
+   step (48 CG steps) within 1e-4 relative of a float64 dense solve of
+   the same system and its 10-iteration cost printed beside the direct
+   solve's (C=64, P=32768, O=8); both sharded pose-graph modes equal to the
+   single-device PCG to the bit (K=256, E=8192, 3 iterations); the sharded
+   BoW query equal to `database._query` (K=4096, V=4096); the ms per LM,
+   GN and query iteration beside the single-device solvers'; then
+   `dryrun_multichip(1)` in a spawned rank, and a second rank refused.
+   One card serves one rank: ranks beyond 1 run on the CPU (the tests).
 
 How a kernel is timed, at each shape: `ms` is its device time, 50
 launches into preallocated outputs captured in one CUDA graph and the
@@ -106,7 +122,7 @@ never calls; `bound_ms` the larger of its bytes over 3.35 TB/s and its
 operations over the peak rate of their type.
 
 The launch counts are set to 0 just before each path is driven and read
-just after; the kernels line sums the eight paths and gives each path's
+just after; the kernels line sums the nine paths and gives each path's
 counts. The last two lines are that JSON object of the kernels' launch
 counts, errors and times, and the JSON result line. Exits non-zero,
 printing no result, when no CUDA device is available.
@@ -201,6 +217,13 @@ CLI_FRAMES = 40
 CLI_ATE_LIMIT_M = 0.01
 PCG_KEYFRAMES = 160        # past the loop closer's pose_graph_dense_max_k (128)
 TOL_PCG = 1e-4
+# the multi-device slice at bench_scaling.py's sizes: BA (C, P, O), pose
+# graph (K, E), BoW database (K, V)
+SHARD_BA_SHAPE, SHARD_PG_SHAPE, SHARD_BOW_SHAPE = (64, 32768, 8), (256, 8192), (4096, 4096)
+SHARD_BA_ITERS, SHARD_PG_ITERS, SHARD_CG = 10, 3, 48
+TOL_PCG_STEP = 1e-4        # the PCG camera solve against a float64 dense solve
+# graft entry, card against CPU; the descriptor share is test_torch_orb.py's bar
+GRAFT_TCW_TOL, GRAFT_DESC_SHARE, GRAFT_MIN_INLIERS = 1e-4, 0.99, 100
 
 
 def fail(msg: str) -> None:
@@ -1603,6 +1626,258 @@ def check_pcg(device) -> None:
         fail(f"PCG: card vs CPU gap {gap}, moved {moved}")
 
 
+def matching_frame():
+    """`graft_entry.entry`'s arguments for a frame it can track: frame 1 of
+    the forward dolly rendered at the entry's camera (`CameraConfig()`),
+    and a map point for each feature the port's extraction finds on it
+    with a depth (the feature's pixel lifted with the rendered depth and
+    the true pose, with the feature's descriptor), the rest of the
+    `LOCAL_POINTS` slots empty. Tcw0 is the true pose moved by ~1 cm and
+    ~0.2 degrees. Numpy arrays, made on the CPU."""
+    from orbslam2_tpu_torch.config import CameraConfig, OrbConfig
+    from orbslam2_tpu_torch.geometry import se3
+    from orbslam2_tpu_torch.graft_entry import LOCAL_POINTS
+    from orbslam2_tpu_torch.ops.orb import OrbExtractor
+
+    cam = CameraConfig()
+    seq = _sequence((2, "forward", cam, 0))
+    image, depth = seq.frame(1)
+    feats = OrbExtractor(OrbConfig(num_features=1000, feature_slots=1024))(
+        torch.from_numpy(image))
+    xy = feats.xy.numpy().astype(np.float64)
+    px = np.clip(np.round(xy).astype(np.int64), 0, [cam.width - 1, cam.height - 1])
+    z = depth[px[:, 1], px[:, 0]].astype(np.float64)
+    keep = feats.valid.numpy() & np.isfinite(z) & (z > 0.1)
+    pc = np.stack([(xy[:, 0] - cam.cx) / cam.fx * z, (xy[:, 1] - cam.cy) / cam.fy * z, z], -1)
+    Twc = np.linalg.inv(seq.poses[1])
+    pw = pc[keep] @ Twc[:3, :3].T + Twc[:3, 3]
+    m = len(pw)
+    mp_pos = np.zeros((LOCAL_POINTS, 3), np.float32)
+    mp_desc = np.zeros((LOCAL_POINTS, 8), np.int32)
+    mp_pos[:m], mp_desc[:m] = pw, feats.desc.numpy()[keep]
+    nudge = se3.exp_se3(torch.tensor([0.008, -0.004, 0.006, 0.002, -0.003, 0.001])).numpy()
+    Tcw0 = (nudge.astype(np.float64) @ seq.poses[1]).astype(np.float32)
+    return image, mp_pos, mp_desc, np.arange(LOCAL_POINTS) < m, Tcw0
+
+
+def check_graft_entry(device) -> dict:
+    """`graft_entry.entry()`'s function on the card against the port on the
+    CPU, on its own example arguments and on `matching_frame()`: at least
+    99 % of the descriptors equal (`test_torch_orb.py`'s bar: a cos/sin
+    rounding at a .5 boundary flips one BRIEF sample), Tcw within 1e-4,
+    the same inliers. The card's two calls are the graft-entry path: K1
+    and K2 each launched in both."""
+    from orbslam2_tpu_torch import graft_entry, kernels
+
+    fn_card, example = graft_entry.entry(device)
+    fn_cpu, _ = graft_entry.entry("cpu")
+    frames = {"example": tuple(a.cpu().numpy() for a in example), "matching": matching_frame()}
+    kernels.launch_counts.update(hamming=0, pose_gn=0)
+    outs = {k: fn_card(*(torch.from_numpy(a).to(device) for a in v)) for k, v in frames.items()}
+    torch.cuda.synchronize()
+    launches = dict(kernels.launch_counts)
+    for k, v in frames.items():
+        card = outs[k]
+        cpu = fn_cpu(*(torch.from_numpy(a) for a in v))
+        same = (card[2].cpu() == cpu[2]).all(dim=1).double().mean().item()
+        gap = float((card[0].cpu() - cpu[0]).abs().max())
+        n_card, n_cpu = int(card[1]), int(cpu[1])
+        print(f"graft entry, {k} frame: card {n_card} inliers, CPU {n_cpu}; pose gap {gap:.3e}; "
+              f"descriptors equal {same:.4f}", flush=True)
+        if not (n_card == n_cpu and gap <= GRAFT_TCW_TOL and same >= GRAFT_DESC_SHARE
+                and torch.isfinite(card[0]).all()):
+            fail(f"graft entry ({k} frame): card against CPU")
+    if int(outs["matching"][1]) <= GRAFT_MIN_INLIERS:
+        fail(f"graft entry: {int(outs['matching'][1])} inliers on the matching frame")
+    print(f"graft entry: launches {launches} over {len(frames)} calls", flush=True)
+    for name, n in launches.items():
+        if n < len(frames):
+            fail(f"graft entry launched {name} {n} times in {len(frames)} calls")
+    return {"launches": launches, "frames": len(frames)}
+
+
+def scaling_ba_problem(seed: int = 0) -> dict:
+    """`bench_scaling.py`'s global-BA problem as numpy arrays: C = 64
+    cameras 0.4 m apart along x, turning 0.01 rad each; P = 32768 points
+    seen by O = 8 random cameras each, 0.3 px of pixel noise, points
+    perturbed by 5 cm, the first 2 cameras fixed."""
+    C, Pn, O = SHARD_BA_SHAPE
+    rng = np.random.default_rng(seed)
+    cams = np.zeros((C, 4, 4))
+    for i in range(C):
+        a = 0.01 * i
+        R = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]])
+        # exp of the twist (0.4 i, 0, 0 | 0, a, 0): t = V rho
+        V = np.eye(3) if a == 0 else (np.eye(3) + (1 - np.cos(a)) / a**2 * np.array(
+            [[0, 0, a], [0, 0, 0], [-a, 0, 0]]) + (a - np.sin(a)) / a**3 * np.array(
+            [[-a * a, 0, 0], [0, 0, 0], [0, 0, -a * a]]))
+        cams[i, :3, :3], cams[i, :3, 3], cams[i, 3, 3] = R, V @ [0.4 * i, 0, 0], 1.0
+    cams = cams.astype(np.float32)
+    pts = np.c_[rng.uniform(-5, 30, Pn), rng.uniform(-4, 4, Pn),
+                rng.uniform(4, 30, Pn)].astype(np.float32)
+    obs_cam = np.stack([rng.permutation(C)[:O] for _ in range(Pn)]).astype(np.int32)
+    Ts = cams[obs_cam]
+    pc = np.einsum("poij,pj->poi", Ts[..., :3, :3], pts) + Ts[..., :3, 3]
+    z = np.maximum(pc[..., 2], 0.1)
+    uv = np.stack([480.0 * pc[..., 0] / z + 319.5, 480.0 * pc[..., 1] / z + 239.5],
+                  axis=-1).astype(np.float32)
+    return dict(
+        cam_Tcw=cams, cam_free=np.arange(C) >= 2,
+        points=pts + rng.normal(0, 0.05, pts.shape).astype(np.float32),
+        point_valid=np.ones(Pn, bool), obs_cam=obs_cam,
+        obs_uv=uv + rng.normal(0, 0.3, uv.shape).astype(np.float32),
+        obs_ur=np.full((Pn, O), -1.0, np.float32), obs_inv_sigma2=np.ones((Pn, O), np.float32),
+        obs_valid=pc[..., 2] > 0.5)
+
+
+def scaling_pose_graph(device, seed: int = 1):
+    """`bench_scaling.py`'s pose graph: K = 256 keyframes 0.3 m apart,
+    turning 0.02 rad each, E = 8192 random edges from each keyframe to one
+    of the next 8, measured from the true poses, keyframe 0 fixed; the
+    vertices start off the truth by a random twist of 0.01 per axis, so the
+    solve has work to do."""
+    from orbslam2_tpu_torch.geometry import se3
+    from orbslam2_tpu_torch.solvers import pose_graph
+
+    Kv, E = SHARD_PG_SHAPE
+    rng = np.random.default_rng(seed)
+    Ts = torch.stack([se3.exp_se3(torch.tensor([0.3 * i, 0, 0, 0, 0.02 * i, 0]))
+                      for i in range(Kv)])
+    ei = rng.integers(0, Kv, E)
+    ej = (ei + 1 + rng.integers(0, 8, E)) % Kv
+    meas = pose_graph.se3_to_pack(Ts[ej] @ torch.linalg.inv(Ts[ei]))
+    drift = torch.from_numpy(rng.normal(0, 0.01, (Kv, 6)).astype(np.float32))
+    drift[0] = 0
+    prob = pose_graph.PoseGraphProblem(
+        vertices=pose_graph.se3_to_pack(se3.exp_se3(drift) @ Ts), vertex_valid=torch.ones(Kv, dtype=torch.bool),
+        vertex_fixed=torch.arange(Kv) == 0, edge_i=torch.from_numpy(ei.astype(np.int32)),
+        edge_j=torch.from_numpy(ej.astype(np.int32)), edge_meas=meas,
+        edge_valid=torch.ones(E, dtype=torch.bool), edge_weight=torch.ones(E))
+    return pose_graph.PoseGraphProblem(*(x.to(device) for x in prob))
+
+
+def scaling_bow_query(device, seed: int = 2) -> tuple:
+    """`bench_scaling.py`'s database: K = 4096 BoW rows over V = 4096 words,
+    1 % of the covisibility weights set, the query keyframe K/2's row."""
+    Kb, V = SHARD_BOW_SHAPE
+    rng = np.random.default_rng(seed)
+    vecs = rng.uniform(0, 1, (Kb, V)).astype(np.float32)
+    vecs /= vecs.sum(axis=1, keepdims=True)
+    covis = (rng.uniform(0, 1, (Kb, Kb)) > 0.99).astype(np.float32) * 40
+    t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    return (t(vecs), torch.ones(Kb, dtype=torch.bool, device=device), t(vecs[Kb // 2]),
+            torch.zeros(Kb, dtype=torch.bool, device=device), 0.01, t(covis))
+
+
+def check_sharded(device, card: str) -> None:
+    """The multi-device slice at world size 1: this process as the one rank
+    of an NCCL group, each sharded function against the port's
+    single-device solver on the same card, then the group destroyed."""
+    import tempfile
+
+    from orbslam2_tpu_torch import convert
+    from orbslam2_tpu_torch.config import CameraConfig
+    from orbslam2_tpu_torch.geometry.camera import Intrinsics
+    from orbslam2_tpu_torch.parallel import group, sharded_ba, sharded_bow, sharded_pose_graph
+    from orbslam2_tpu_torch.solvers import ba, pose_graph
+    from orbslam2_tpu_torch.vocab import database
+
+    C, Pn, O = SHARD_BA_SHAPE
+    K = Intrinsics.from_config(CameraConfig(fx=480.0, fy=480.0, bf=240.0), device)
+    prob = convert.ba_problem_from_numpy(scaling_ba_problem(), device)
+    it = SHARD_BA_ITERS
+    store = os.path.join(tempfile.mkdtemp(prefix="smoke-group-"), "store")
+    with group.member(0, 1, store, device):
+        direct = lambda: sharded_ba.sharded_bundle_adjust(prob, K, iters=it)  # noqa: E731
+        pcg = lambda: sharded_ba.sharded_bundle_adjust(  # noqa: E731
+            prob, K, iters=it, camera_solver="pcg")
+        cam_d, pts_d, cost_d = direct()
+        cam_p, _, cost_p = pcg()
+        single = ba.bundle_adjust(prob, K, iters=it)
+        ms_direct, ms_pcg = call_ms(direct, reps=2), call_ms(pcg, reps=2)
+        ms_single = call_ms(lambda: ba.bundle_adjust(prob, K, iters=it), reps=2)
+        same = (torch.equal(cam_d, single.cam_Tcw) and torch.equal(pts_d, single.points)
+                and torch.equal(cost_d, single.cost))
+        print(f"sharded BA (direct, world 1, C={C} P={Pn} O={O}, {it} iterations): cost "
+              f"{float(cost_d):.6f}, bundle_adjust {float(single.cost):.6f}, bit-equal {same}",
+              flush=True)
+        if not same:
+            fail("sharded BA (direct) at world size 1 differs from bundle_adjust")
+        print(f"sharded BA (pcg, {SHARD_CG} CG steps, world 1, {it} iterations): cost "
+              f"{float(cost_p):.6f} beside direct's {float(cost_d):.6f} (relative "
+              f"{float((cost_p - cost_d) / cost_d):.3e}), cameras within "
+              f"{float((cam_p - cam_d).abs().max()):.3e}", flush=True)
+        if not cost_p < ba.bundle_adjust(prob, K, iters=0).cost:
+            fail("sharded BA (pcg) did not lower the cost")
+        # the first step's camera solve against a float64 dense solve of
+        # the same system
+        lam = torch.tensor(1e-4, device=device)
+        terms = ba._edge_terms(prob.cam_Tcw, prob.points, prob, K, True)
+        S, g_S, _ = ba.reduced_system(*terms[:4], prob, lam, ba._assembly(prob))
+        exact = ba.solve_cameras(S.double(), g_S.double(), prob.cam_free, lam.double())
+        dx_pcg = sharded_ba.solve_cameras_pcg(S, g_S, prob.cam_free, lam, SHARD_CG)
+        dx_dir = ba.solve_cameras(S, g_S, prob.cam_free, lam)
+        rel = float((dx_pcg.double() - exact).norm() / exact.norm())
+        rel_dir = float((dx_dir.double() - exact).norm() / exact.norm())
+        print(f"sharded BA first step (against a float64 dense solve of the same system, "
+              f"|exact| {float(exact.norm()):.6e}): pcg ({SHARD_CG} CG steps) relative {rel:.3e}; "
+              f"float32 direct relative {rel_dir:.3e}", flush=True)
+        if not rel <= TOL_PCG_STEP:
+            fail(f"sharded BA pcg first step {rel} from the float64 solve")
+
+        gprob = scaling_pose_graph(device)
+        gi = SHARD_PG_ITERS
+        single_pg = pose_graph.optimize_pose_graph_pcg(gprob, iters=gi)
+        ms_pg = call_ms(lambda: pose_graph.optimize_pose_graph_pcg(gprob, iters=gi), reps=2)
+        ms_modes = {}
+        for inner in ("gathered", "stepped"):
+            def solve():
+                return sharded_pose_graph.sharded_optimize_pose_graph(gprob, iters=gi, inner=inner)
+
+            out = solve()
+            ms_modes[inner] = call_ms(solve, reps=2)
+            same = torch.equal(out, single_pg)
+            print(f"sharded pose graph ({inner}, world 1, K={gprob.vertices.shape[0]} "
+                  f"E={gprob.edge_i.shape[0]}, {gi} iterations): gap "
+                  f"{float((out - single_pg).abs().max()):.3e} to the single-device PCG, "
+                  f"bit-equal {same}; the solve moved the packs by up to "
+                  f"{packs_gap(out, gprob.vertices):.3e}", flush=True)
+            if not same:
+                fail(f"sharded pose graph ({inner}) differs from the single-device PCG")
+
+        args = scaling_bow_query(device)
+        got, ref = sharded_bow.sharded_query(*args), database._query(*args)
+        ms_q = call_ms(lambda: sharded_bow.sharded_query(*args))
+        ms_db = call_ms(lambda: database._query(*args))
+        same = all(torch.equal(a, b) for a, b in zip(got, ref))
+        print(f"sharded BoW query (world 1, K={args[0].shape[0]} V={args[0].shape[1]}): "
+              f"candidates {got[0].tolist()} (mask {got[1].tolist()}), identical to "
+              f"database._query {same}", flush=True)
+        if not same:
+            fail("sharded BoW query differs from database._query")
+    print(f"{card}: ms per LM iteration (C={C}, P={Pn}), sharded at world 1 direct "
+          f"{ms_direct / it:.2f}, pcg {ms_pcg / it:.2f}, bundle_adjust {ms_single / it:.2f}; "
+          f"ms per Gauss-Newton iteration (K={SHARD_PG_SHAPE[0]}, E={SHARD_PG_SHAPE[1]}), "
+          f"gathered {ms_modes['gathered'] / gi:.2f}, stepped {ms_modes['stepped'] / gi:.2f}, "
+          f"single-device PCG {ms_pg / gi:.2f}; ms per BoW query (K={SHARD_BOW_SHAPE[0]}), "
+          f"sharded {ms_q:.3f}, database._query {ms_db:.3f}", flush=True)
+
+
+def check_dryrun() -> None:
+    """`dryrun_multichip(1)` in a spawned rank on the card; a second rank
+    is refused on one card."""
+    from orbslam2_tpu_torch import graft_entry
+
+    graft_entry.dryrun_multichip(1)
+    n = torch.cuda.device_count() + 1
+    try:
+        graft_entry.dryrun_multichip(n)
+    except RuntimeError as e:
+        print(f"dryrun_multichip({n}) refused: {e}", flush=True)
+    else:
+        fail(f"dryrun_multichip({n}) ran on {n - 1} card(s)")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -1660,12 +1935,19 @@ def run_phases(device, card: str) -> None:
     cli = check_cli_path(device)
     check_pcg(device)
     print(f"localization, CLI and PCG phases: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    graft = check_graft_entry(device)
+    check_sharded(device, card)
+    check_dryrun()
+    print(f"graft entry and sharded phases: {time.perf_counter() - t0:.1f} s", flush=True)
 
     if "jax" in sys.modules:
         fail("jax was imported")
-    paths = (main_path, mapping, stereo_path, mono_path, reloc, orbit640, orbit320, localization)
+    paths = (main_path, mapping, stereo_path, mono_path, reloc, orbit640, orbit320, localization,
+             graft)
     names = ("rgbd_tracking", "rgbd_mapping", "stereo_mapping", "mono_mapping",
-             "rgbd_relocalization", "rgbd_orbit_640", "rgbd_orbit_320", "rgbd_localization")
+             "rgbd_relocalization", "rgbd_orbit_640", "rgbd_orbit_320", "rgbd_localization",
+             "graft_entry")
     for k, key in ((k1, "hamming"), (k2, "pose_gn")):
         k["launches"] = sum(p["launches"][key] for p in paths)
         k["launches_per_path"] = {name: {"launches": p["launches"][key], "frames": p["frames"]}

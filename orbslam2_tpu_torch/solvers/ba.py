@@ -213,15 +213,15 @@ def inv3x3_det(h: torch.Tensor):
     return det, adj / safe[..., None, None]
 
 
-def _build_and_solve(r, Jc, Jp, w, prob: BAProblem, lam, plan: _Assembly):
-    """One damped Gauss-Newton step via the Schur complement. Returns
-    (dx_cam [C, 6], dp [P, 3])."""
+def reduced_system(r, Jc, Jp, w, prob: BAProblem, lam, plan: _Assembly):
+    """Eliminate the points of one damped Gauss-Newton step (Schur
+    complement). Returns the reduced camera system S [C, C, 6, 6] and its
+    right-hand side g_S [C, 6], neither damped nor masked, and what the
+    points' back-substitution needs: (Hpp_inv [P, 3, 3], gp [P, 3], Wcp
+    [P, O, 6, 3])."""
     C = prob.cam_Tcw.shape[0]
-    P, O = prob.obs_cam.shape
     dt, dev = r.dtype, r.device
-    cam = _cam_index(prob)
     eye3 = torch.eye(3, dtype=dt, device=dev)
-    eye6 = torch.eye(6, dtype=dt, device=dev)
 
     Wr = w[..., None] * r
     # point blocks
@@ -246,10 +246,16 @@ def _build_and_solve(r, Jc, Jp, w, prob: BAProblem, lam, plan: _Assembly):
     S = _segment_sum(torch.cat([Hcc_blk.reshape(-1, 6, 6), -cross.reshape(-1, 6, 6)]),
                      plan.system).view(C, C, 6, 6)
     g_S = _segment_sum((gc_blk - g_red).reshape(-1, 6), plan.grad)
+    return S, g_S, (Hpp_inv, gp, Wcp)
 
-    # damping + fixed-camera masking: zero the rows/columns of fixed
-    # cameras, identity on their diagonal blocks
-    free = prob.cam_free
+
+def solve_cameras(S, g_S, free, lam):
+    """The camera update dx_cam [C, 6] of the reduced system: rows and
+    columns of fixed cameras zeroed with an identity diagonal block, the
+    free cameras' diagonal damped, one dense [6C, 6C] solve."""
+    C = S.shape[0]
+    dev = S.device
+    eye6 = torch.eye(6, dtype=S.dtype, device=dev)
     S = S * (free[:, None, None, None] & free[None, :, None, None])
     diag = torch.arange(C, device=dev)
     S_diag = S[diag, diag]
@@ -263,32 +269,49 @@ def _build_and_solve(r, Jc, Jp, w, prob: BAProblem, lam, plan: _Assembly):
     # solve_ex: `solve` would read the LU status back to the host to raise
     # on a singular system; a failed solve is caught by the finite check
     dx_cam = torch.linalg.solve_ex(Sd, -g_S.reshape(C * 6)).result.reshape(C, 6)
-    dx_cam = torch.where(
+    return torch.where(
         free[:, None] & torch.all(torch.isfinite(dx_cam), -1, keepdim=True), dx_cam, 0.0
     )
 
+
+def _build_and_solve(r, Jc, Jp, w, prob: BAProblem, lam, plan: _Assembly,
+                     camera_solve=solve_cameras):
+    """One damped Gauss-Newton step via the Schur complement, the cameras'
+    update from `camera_solve(S, g_S, free, lam)`. Returns (dx_cam [C, 6],
+    dp [P, 3])."""
+    S, g_S, (Hpp_inv, gp, Wcp) = reduced_system(r, Jc, Jp, w, prob, lam, plan)
+    dx_cam = camera_solve(S, g_S, prob.cam_free, lam)
     # back-substitute the points: dp = Hpp^-1 (-gp - Hpc dx_c), Hpc = Wcp^T
-    Hpc_dx = torch.einsum("pojk,poj->pk", Wcp, dx_cam[cam])
+    Hpc_dx = torch.einsum("pojk,poj->pk", Wcp, dx_cam[_cam_index(prob)])
     dp = torch.einsum("pjk,pk->pj", Hpp_inv, -gp - Hpc_dx)
     dp = torch.where(torch.all(torch.isfinite(dp), -1, keepdim=True), dp, 0.0)
     return dx_cam, dp
 
 
-def _lm_steps(prob: BAProblem, K: Intrinsics, cam, pts, lam, iters: int, use_kernel: bool):
+def _lm_steps(prob: BAProblem, K: Intrinsics, cam, pts, lam, iters: int, use_kernel: bool,
+              camera_solve=solve_cameras, total=None):
     """Run `iters` Levenberg-Marquardt steps from (cam, pts, lam), with one
     edge evaluation per step: the candidate's terms score the step and, on
-    accept, are the next linearization."""
+    accept, are the next linearization. `camera_solve(S, g_S, free, lam)`
+    gives the camera update of this call's reduced system; `total` sums a
+    cost over the ranks that share the cameras (None: this call holds
+    every point)."""
     is_stereo = prob.obs_ur >= 0
     plan = _assembly(prob)
+
+    def cost_of(terms):
+        c = _robust_cost(terms[4], terms[5], use_kernel, is_stereo)
+        return c if total is None else total(c)
+
     terms = _edge_terms(cam, pts, prob, K, use_kernel)
-    cost = _robust_cost(terms[4], terms[5], use_kernel, is_stereo)
+    cost = cost_of(terms)
     for _ in range(iters):
         r, Jc, Jp, w, _, _ = terms
-        dx_cam, dp = _build_and_solve(r, Jc, Jp, w, prob, lam, plan)
+        dx_cam, dp = _build_and_solve(r, Jc, Jp, w, prob, lam, plan, camera_solve)
         cam_new = se3.exp_se3(dx_cam) @ cam
         pts_new = pts + dp
         terms_new = _edge_terms(cam_new, pts_new, prob, K, use_kernel)
-        new_cost = _robust_cost(terms_new[4], terms_new[5], use_kernel, is_stereo)
+        new_cost = cost_of(terms_new)
         accept = new_cost < cost
         cam = torch.where(accept, cam_new, cam)
         pts = torch.where(accept, pts_new, pts)

@@ -169,9 +169,11 @@ def block_jacobi_precond(D, free):
     return torch.where(ok, M_inv, eye7), damp
 
 
-def pcg_solve(Ji, Jj, edge_i, edge_j, plan, D, g, free, cg_iters: int):
-    """Solve H dx = -g by preconditioned CG without forming H. Returns dx
-    [K, 7]."""
+def pcg_solve(Ji, Jj, edge_i, edge_j, plan, D, g, free, cg_iters: int, reduce=None):
+    """Solve H dx = -g by preconditioned CG without forming H. `reduce`
+    sums the partial [K, 7] products of edge-sharded ranks
+    (`parallel.group.psum`); None when this call holds every edge.
+    Returns dx [K, 7]."""
     M_inv, damp = block_jacobi_precond(D, free)
     fm = free[:, None]
     ei, ej = edge_i.to(torch.int64), edge_j.to(torch.int64)
@@ -181,6 +183,8 @@ def pcg_solve(Ji, Jj, edge_i, edge_j, plan, D, g, free, cg_iters: int):
         t = torch.einsum("eab,eb->ea", Ji, xw[ei]) + torch.einsum("eab,eb->ea", Jj, xw[ej])
         y = _segment_sum(torch.cat([torch.einsum("eab,ea->eb", Ji, t),
                                     torch.einsum("eab,ea->eb", Jj, t)]), plan)
+        if reduce is not None:
+            y = reduce(y)
         return torch.where(fm, y + damp[:, None] * x, 0.0)
 
     def precond(r):

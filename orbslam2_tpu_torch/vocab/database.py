@@ -59,13 +59,21 @@ def _query(vectors, present, vec, exclude_mask, min_score, covis, max_candidates
        the best group's, best first.
 
     Returns (cand_ids [C] int32, cand_mask [C], scores [K])."""
-    K = vectors.shape[0]
-    dev = vectors.device
     scores = bow.l1_score(vec, vectors)
     ok = present & ~exclude_mask & (scores >= min_score)
-    scores_ok = torch.where(ok, scores, 0.0)
-    ng = min(10, K)
-    top_w, top_idx = torch.sort(covis, dim=-1, descending=True, stable=True)
+    rows = torch.arange(vectors.shape[0], device=vectors.device)
+    acc, rep = group_scores(ok, scores, covis, rows)
+    return (*candidates(ok, acc, rep, max_candidates), scores)
+
+
+def group_scores(ok, scores, covis_rows, rows):
+    """Steps 3 and 4 for the keyframes `rows`: each one's accumulated
+    group score and its group's representative, from every keyframe's
+    admission `ok` [K] and score [K] and the keyframes' covisibility rows
+    `covis_rows` [R, K]."""
+    scores_ok = torch.where(ok[rows], scores[rows], 0.0)
+    ng = min(10, scores.shape[0])
+    top_w, top_idx = torch.sort(covis_rows, dim=-1, descending=True, stable=True)
     top_w, top_idx = top_w[:, :ng], top_idx[:, :ng]
     neigh_ok = ok[top_idx] & (top_w > 0)
     neigh_scores = torch.where(neigh_ok, scores[top_idx], 0.0)
@@ -73,17 +81,25 @@ def _query(vectors, present, vec, exclude_mask, min_score, covis, max_candidates
     # group representative = the best-scoring member (first on ties)
     best_n = torch.argmax(neigh_scores, dim=-1)
     best_n_score = torch.gather(neigh_scores, 1, best_n[:, None])[:, 0]
-    rows = torch.arange(K, device=dev)
-    rep = torch.where(best_n_score > scores_ok, top_idx[rows, best_n], rows)
+    rep = torch.where(best_n_score > scores_ok, torch.gather(top_idx, 1, best_n[:, None])[:, 0],
+                      rows)
+    return acc, rep
+
+
+def candidates(ok, acc, rep, max_candidates: int):
+    """The representatives of the groups whose accumulated score `acc` [K]
+    reaches 0.75 of the best, best first: (cand_ids [C] int32, cand_mask
+    [C])."""
+    K = acc.shape[0]
     acc = torch.where(ok, acc, -1.0)
     best = torch.max(acc)
     admit_group = ok & (acc >= 0.75 * best) & (best > 0)
     # several groups may elect the same representative: keep the max
     # accumulated score per representative
     rep_w = torch.where(admit_group, rep, K)
-    rep_acc = torch.full((K + 1,), -torch.inf, device=dev).scatter_reduce(
+    rep_acc = torch.full((K + 1,), -torch.inf, device=acc.device).scatter_reduce(
         0, rep_w, torch.where(admit_group, acc, -torch.inf), "amax", include_self=True)[:K]
     admit = rep_acc > -torch.inf
     order = torch.sort(torch.where(admit, -rep_acc, torch.inf), stable=True).indices
     cand = order[:max_candidates]
-    return cand.to(torch.int32), admit[cand], scores
+    return cand.to(torch.int32), admit[cand]

@@ -548,3 +548,72 @@ def test_train_codebook_card_matches_cpu(device):
     assert torch.equal(seeds_g.cpu(), seeds_c)
     got = bow.train_codebook(desc.to(device), valid.to(device), seeds_g, 256, 6)
     assert torch.equal(got.cpu(), bow.train_codebook(desc, valid, seeds_c, 256, 6))
+
+
+@pytest.fixture
+def world1(device, tmp_path):
+    """This process as the one rank of an NCCL group on the card."""
+    from orbslam2_tpu_torch.parallel import group
+
+    with group.member(0, 1, str(tmp_path / "store"), device):
+        yield device
+
+
+def test_sharded_solvers_at_world_size_1_match_single_device(world1):
+    """Each sharded function at world size 1 on the card against the port's
+    single-device solver on the card: the BA's direct solve equal to
+    `bundle_adjust` to the bit (its PCG solve within 1e-3 of the truth's
+    cameras, as the direct one), both pose-graph modes equal to the
+    single-device PCG at bench_scaling.py's K=256, E=8192 (gathered
+    blocks laid out otherwise than the single-device solve's take other
+    product kernels there, and ended 1.04e-4 off), the BoW query equal to
+    `database._query`."""
+    from chip_smoke import scaling_bow_query, scaling_pose_graph
+    from orbslam2_tpu_torch import config
+    from orbslam2_tpu_torch.geometry.camera import Intrinsics
+    from orbslam2_tpu_torch.parallel import sharded_ba, sharded_bow, sharded_pose_graph
+    from orbslam2_tpu_torch.solvers import ba, pose_graph
+    from orbslam2_tpu_torch.vocab import database
+
+    device = world1
+    cam = config.CameraConfig(fx=480.0, fy=480.0, cx=319.5, cy=239.5, bf=48.0)
+    K = Intrinsics.from_config(cam, device)
+    prob = ba.BAProblem(*(x.to(device) for x in make_ba_problem(np.random.default_rng(7))))
+    c, p, cost = sharded_ba.sharded_bundle_adjust(prob, K, iters=10)
+    single = ba.bundle_adjust(prob, K, iters=10)
+    assert torch.equal(c, single.cam_Tcw) and torch.equal(p, single.points)
+    assert torch.equal(cost, single.cost)
+    c_pcg, _, cost_pcg = sharded_ba.sharded_bundle_adjust(prob, K, iters=10,
+                                                          camera_solver="pcg")
+    assert float((c_pcg - c).abs().max()) <= 1e-3 and torch.isfinite(cost_pcg)
+
+    gprob = scaling_pose_graph(device)
+    ref = pose_graph.optimize_pose_graph_pcg(gprob, iters=2)
+    for inner in ("gathered", "stepped"):
+        out = sharded_pose_graph.sharded_optimize_pose_graph(gprob, iters=2, inner=inner)
+        assert torch.equal(out, ref), inner
+
+    args = scaling_bow_query(device)
+    for a, b in zip(sharded_bow.sharded_query(*args), database._query(*args)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("inner", ["gathered", "stepped"])
+def test_sharded_pose_graph_reads_nothing_on_host(world1, inner):
+    """After a first solve, a sharded pose-graph solve at world size 1 runs
+    its Gauss-Newton iterations and every CG step with no host read (CUDA
+    sync debug mode raises on one): the collectives and the solve are
+    one chain on the device."""
+    from chip_smoke import ring_problem
+    from orbslam2_tpu_torch.parallel import sharded_pose_graph
+
+    gprob = ring_problem(world1, 64, 32)
+    sharded_pose_graph.sharded_optimize_pose_graph(gprob, iters=1, cg_iters=4, inner=inner)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = sharded_pose_graph.sharded_optimize_pose_graph(gprob, iters=2, cg_iters=16,
+                                                             inner=inner)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(out).all()

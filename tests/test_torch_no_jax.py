@@ -18,8 +18,9 @@ def test_port_imports_no_jax():
     """Neither jax nor any module of the reference package is loaded by the
     port's session, its converters, its kernels, its loop-closing and
     relocalization modules, its dataset loaders, native decoder, drawers,
-    profiling and command-line runner, `chip_smoke.py` or the tool that
-    times the relocalization warm-up."""
+    profiling and command-line runner, its sharded solvers and entry
+    points, `chip_smoke.py`, the tool that times the relocalization
+    warm-up, or the functions the parallel tests run in their ranks."""
     code = (
         "import sys\n"
         "import orbslam2_tpu_torch.pipeline.system, orbslam2_tpu_torch.convert, "
@@ -32,6 +33,9 @@ def test_port_imports_no_jax():
         "import orbslam2_tpu_torch.datasets, orbslam2_tpu_torch.native, "
         "orbslam2_tpu_torch.viz.drawers, orbslam2_tpu_torch.profiling, orbslam2_tpu_torch.run, "
         "tools.reloc_warmup_timing\n"
+        "import orbslam2_tpu_torch.parallel.group, orbslam2_tpu_torch.parallel.sharded_ba, "
+        "orbslam2_tpu_torch.parallel.sharded_bow, orbslam2_tpu_torch.parallel.sharded_pose_graph, "
+        "orbslam2_tpu_torch.graft_entry, tests.torch_ranks\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
         "ref = sorted(m for m in sys.modules if m.split('.')[0] == 'orbslam2_tpu')\n"
         "assert not ref, ref\n"
