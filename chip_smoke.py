@@ -8,7 +8,9 @@ Phases, each printing its own lines; any failed check exits non-zero:
 2. build: compile the hand-written kernels (`orbslam2_tpu_torch/csrc`);
 3. K1 (Hamming distance) on the card against its plain PyTorch version,
    exact at ragged and empty shapes and on words of all zeros, all ones
-   and the sign bit alone; then timed at the tracking shapes;
+   and the sign bit alone; then timed at the tracking shapes and at a
+   vocabulary retrain's, the 262144-row reservoir against 256 coarse
+   words (exact there too);
 4. K2 (pose Gauss-Newton) on the card against its plain version, Tcw to
    atol 1e-4 and equal inlier sets, its `num_inliers` equal to
    `inliers.sum()`, at the RGB-D and stereo paths' 1024 slots with part
@@ -109,7 +111,23 @@ Phases, each printing its own lines; any failed check exits non-zero:
    BoW query equal to `database._query` (K=4096, V=4096); the ms per LM,
    GN and query iteration beside the single-device solvers'; then
    `dryrun_multichip(1)` in a spawned rank, and a second rank refused.
-   One card serves one rank: ranks beyond 1 run on the CPU (the tests).
+   One card serves one rank: ranks beyond 1 run on the CPU (the tests);
+21. the long session's paths: the 320x240 orbit of phase 14 with
+   `pose_graph_dense_max_k` 64, below its 96 keyframe slots, so that each
+   loop correction solves the essential graph by PCG: the reference's
+   keyframes through its correction, no fewer loops closed and no more
+   frames lost than the reference's run of that session, every correction
+   through `optimize_pose_graph_pcg` (the calls counted by wrapping it)
+   and K1 in every verification; then `orbslam2_tpu_torch.scale`'s stages
+   at 1024 keyframes and 98304 points on the card, its graph stages again
+   on the CPU: the dropped observations, observation tables,
+   covisibility and essential edges equal, the pose-graph vertices within
+   1e-4 up to each quaternion's sign, the global BA's cost after 2
+   iterations finite and below its start; each stage's seconds and the
+   peak device bytes printed; last, slot recycling card against CPU: the
+   320x240 orbit's first 28 frames through a 7-slot pool, the reference's
+   keyframes and culled slots (1, then 2; frame 27's keyframe recycles
+   slot 1), the same database rows, poses within 5 mm and 0.2 degrees.
 
 How a kernel is timed, at each shape: `ms` is its device time, 50
 launches into preallocated outputs captured in one CUDA graph and the
@@ -122,7 +140,7 @@ never calls; `bound_ms` the larger of its bytes over 3.35 TB/s and its
 operations over the peak rate of their type.
 
 The launch counts are set to 0 just before each path is driven and read
-just after; the kernels line sums the nine paths and gives each path's
+just after; the kernels line sums the ten paths and gives each path's
 counts. The last two lines are that JSON object of the kernels' launch
 counts, errors and times, and the JSON result line. Exits non-zero,
 printing no result, when no CUDA device is available.
@@ -132,7 +150,6 @@ from __future__ import annotations
 
 import dataclasses
 import json
-import multiprocessing
 import os
 import statistics
 import subprocess
@@ -141,6 +158,8 @@ import time
 
 import numpy as np
 import torch
+
+from orbslam2_tpu_torch import drive
 
 GRAPH_LAUNCHES = 50       # kernel launches captured in one CUDA graph
 GRAPH_REPLAYS = 7         # device time: median over replays of replay time / launches
@@ -217,6 +236,25 @@ CLI_FRAMES = 40
 CLI_ATE_LIMIT_M = 0.01
 PCG_KEYFRAMES = 160        # past the loop closer's pose_graph_dense_max_k (128)
 TOL_PCG = 1e-4
+# a vocabulary retrain's K1 shape: the reservoir (reservoir_cap 262144 in
+# the long run) against the two-level codebook's 256 coarse words
+RESERVOIR_K1 = (262144, 256)
+# phase 21: the 320x240 orbit with the essential graph's dense solve
+# capped below its 96 keyframe slots, so every correction takes the PCG;
+# the reference's own run of it (tools/loop_reference_targets.py
+# orbit320_pcg, CPU, one device). Its keyframes before the correction are
+# the 320x240 orbit's (the cap changes nothing before it).
+ORBIT320_PCG_DENSE_MAX_K = 64
+ORBIT320_PCG_REFERENCE = dict(loops_closed=1, loop_frames=[173], lost=1, ate=2.4750579503916805,
+                              ate_orbit=0.015863539123523614,
+                              kf_prefix=ORBIT320_REFERENCE["kf_prefix"])
+# phase 21: stress_scale.py's map (orbslam2_tpu_torch.scale)
+SCALE_SHAPE = (1024, 98304)
+# phase 21: the 320x240 orbit's first 28 frames through a 7-slot pool, as
+# tests/test_torch_longrun.py runs it against the reference: its keyframes,
+# and the slots it culls (slot 1 is recycled by frame 27's keyframe)
+RECYCLE_SLOTS, RECYCLE_FRAMES = 7, 28
+RECYCLE_KFS, RECYCLE_CULLED = [0, 2, 5, 9, 13, 17, 22, 27], [1, 2]
 # the multi-device slice at bench_scaling.py's sizes: BA (C, P, O), pose
 # graph (K, E), BoW database (K, V)
 SHARD_BA_SHAPE, SHARD_PG_SHAPE, SHARD_BOW_SHAPE = (64, 32768, 8), (256, 8192), (4096, 4096)
@@ -229,14 +267,6 @@ GRAFT_TCW_TOL, GRAFT_DESC_SHARE, GRAFT_MIN_INLIERS = 1e-4, 0.99, 100
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", flush=True)
     sys.exit(1)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 def call_ms(fn, reps: int = 20) -> float:
@@ -383,8 +413,9 @@ def check_k1(device) -> dict:
         fail(f"K1 all ones against all zeros: {d.tolist()}")
     print("K1 all ones / all zeros: distances 256 and 0", flush=True)
     shapes = {}
-    for n, m in [(1024, 1024), (4096, 1024)]:
-        t = time_k1(rand_desc(rng, n, device), rand_desc(rng, m, device), "tracking")
+    for n, m, label in [(1024, 1024, "tracking"), (4096, 1024, "tracking"),
+                        (*RESERVOIR_K1, "two-level vocabulary's coarse assignment")]:
+        t = time_k1(rand_desc(rng, n, device), rand_desc(rng, m, device), label)
         shapes[t["shape"]] = t
     main = shapes["4096x1024"]
     return {"name": "hamming_distance_matrix", "route": "cuda",
@@ -556,79 +587,27 @@ def stereo_config(cfg):
     return dataclasses.replace(cfg, sensor=c.Sensor.STEREO)
 
 
-# worker processes that render the synthetic frames (numpy on one core,
-# about a second for a 640x480 frame); None renders in this process
+# the render workers (`drive.RenderPool`), started by `start_render_pool`;
+# None renders in this process
 _POOL = None
-_SEQS: dict = {}
-_ONE_THREAD = {"OPENBLAS_NUM_THREADS": "1", "OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1"}
-
-
-def yawed_poses(base, yaws) -> np.ndarray:
-    """`base` turned about the camera's y axis by each of `yaws` degrees."""
-    out = []
-    for yaw in yaws:
-        a = np.radians(yaw)
-        T = np.eye(4)
-        T[:3, :3] = [[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]]
-        out.append(T @ base)
-    return np.stack(out)
-
-
-def _sequence(spec):
-    """The synthetic sequence of `spec` = (n_frames, kind, camera, revisit)
-    or (n_frames, kind, camera, revisit, yaws): `revisit` frames of the
-    start appended to the poses (the orbits); with `yaws`, the poses are
-    instead the last frame's turned by each of them (localization mode)."""
-    from orbslam2_tpu_torch import synthetic
-
-    if spec not in _SEQS:
-        n_frames, kind, cam, revisit, *turn = spec
-        seq = synthetic.textured_sequence(n_frames=n_frames, kind=kind, seed=0, cam=cam)
-        if revisit:
-            seq = dataclasses.replace(seq, poses=np.concatenate([seq.poses, seq.poses[:revisit]]))
-        if turn:
-            seq = dataclasses.replace(seq, poses=yawed_poses(seq.poses[-1], turn[0]))
-        _SEQS[spec] = seq
-    return _SEQS[spec]
 
 
 def start_render_pool() -> None:
-    """Start the render workers: spawned, not forked (the caller may hold a
-    CUDA context), each with one BLAS thread (eight renderers with a full
-    BLAS pool each ran no faster than one)."""
     global _POOL
-    saved = {k: os.environ.get(k) for k in _ONE_THREAD}
-    os.environ.update(_ONE_THREAD)
-    try:
-        _POOL = multiprocessing.get_context("spawn").Pool(min(8, os.cpu_count() or 1))
-    finally:
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k)
-            else:
-                os.environ[k] = v
+    _POOL = drive.RenderPool()
 
 
 def stop_render_pool() -> None:
     global _POOL
-    _POOL.terminate()
-    _POOL.join()
+    _POOL.close()
     _POOL = None
 
 
-def _render(task):
-    spec, i, stereo = task
-    seq = _sequence(spec)
-    return seq.stereo(i)[:2] if stereo else seq.frame(i)
-
-
 def render(spec, indices, stereo: bool = False) -> list:
-    """Frames `indices` of the sequence of `spec`, (image, depth) or
-    (left, right) each, rendered by the worker pool when there is one."""
-    tasks = [(spec, i, stereo) for i in indices]
-    if _POOL is None:
-        return [_render(t) for t in tasks]
-    return _POOL.map(_render, tasks)
+    """Frames `indices` of the sequence of `spec` (`drive.sequence`),
+    (image, depth) or (left, right) each, rendered by the worker pool when
+    there is one."""
+    return (_POOL or drive.RenderPool(0)).render(spec, indices, stereo)
 
 
 def run_session(cfg, n_frames: int, device, mapping: bool = False, loop_closing: bool = False):
@@ -642,7 +621,7 @@ def run_session(cfg, n_frames: int, device, mapping: bool = False, loop_closing:
 
     kind = "lateral" if cfg.sensor == c.Sensor.MONOCULAR else "forward"
     spec = (n_frames, kind, cfg.camera, 0)
-    seq = _sequence(spec)
+    seq = drive.sequence(spec)
     frames = render(spec, range(n_frames), stereo=cfg.sensor == c.Sensor.STEREO)
     a = torch.from_numpy(np.stack([f[0] for f in frames])).to(device)
     b = torch.from_numpy(np.stack([f[1] for f in frames])).to(device)
@@ -783,10 +762,6 @@ class KeyframeProbe:
         self.union.close()
 
 
-def keyframe_frames(slam) -> list[int]:
-    return [i for i, r in enumerate(slam.results) if r.is_keyframe]
-
-
 def print_rates(label: str, secs, kf_frames) -> float:
     """Print frames/s over frames TIMED_FROM.. and the median ms of
     keyframe frames and other frames apart; returns the frames/s."""
@@ -822,7 +797,7 @@ def check_mapping_path(device) -> dict:
         fail(f"mapping path: poses of shape {poses.shape}, finite {np.isfinite(poses).all()}")
     ate = evaluation.ate_rmse(poses, seq.poses, align=True)
     n_tracked = int(tracked.sum())
-    kf_frames = keyframe_frames(slam)
+    kf_frames = drive.keyframe_frames(slam)
     print(f"mapping path: {n_tracked}/{MAP_FRAMES} frames tracked, ATE {ate:.5f} m, "
           f"{slam.num_points()} points, {len(kf_frames)} keyframes made at frames {kf_frames}, "
           f"{slam.num_keyframes()} live", flush=True)
@@ -874,7 +849,7 @@ def check_stereo_path(device) -> dict:
         fail(f"stereo path: poses of shape {poses.shape}, finite {np.isfinite(poses).all()}")
     ate = evaluation.ate_rmse(poses, seq.poses, align=True)
     n_tracked = int(tracked.sum())
-    kf_frames = keyframe_frames(slam)
+    kf_frames = drive.keyframe_frames(slam)
     print(f"stereo path: {n_tracked}/{MAP_FRAMES} frames tracked, ATE {ate:.5f} m, "
           f"{slam.num_points()} points, {len(kf_frames)} keyframes made at frames {kf_frames}, "
           f"{slam.num_keyframes()} live", flush=True)
@@ -924,7 +899,7 @@ def check_mono_path(device) -> dict:
     init = first_tracked(tracked)
     ate = (evaluation.ate_rmse(poses[tracked], seq.poses[tracked], align=True, with_scale=True)
            if tracked.sum() >= 3 else float("inf"))
-    kf_frames = keyframe_frames(slam)
+    kf_frames = drive.keyframe_frames(slam)
     print(f"mono path: initialised at frame {init}, {int(tracked.sum())}/{MONO_FRAMES} frames "
           f"tracked, scaled ATE {ate:.5f}, {slam.num_points()} points, {slam.num_keyframes()} "
           f"keyframes (made at frames {kf_frames})", flush=True)
@@ -954,7 +929,7 @@ def check_small_cpu_agreement(device, cfg, n_frames: int, label: str, mapping: b
     initialization tracked, per-frame poses within 5 mm and 0.2 degrees."""
     gpu, _, _ = run_session(cfg, n_frames, device, mapping=mapping)
     cpu, _, _ = run_session(cfg, n_frames, torch.device("cpu"), mapping=mapping)
-    kg, kc = keyframe_frames(gpu), keyframe_frames(cpu)
+    kg, kc = drive.keyframe_frames(gpu), drive.keyframe_frames(cpu)
     _, pg, tg = gpu.frame_poses()
     _, pc, tc = cpu.frame_poses()
     both = tg & tc
@@ -1002,17 +977,6 @@ def orbit320_config():
     )
 
 
-def frame_events(slam, kind: str) -> list[int]:
-    """The frame (0-based) during which each event of `kind` was emitted."""
-    n, out = 0, []
-    for e in slam.log.events:
-        if e["event"] == "frame":
-            n += 1
-        elif e["event"] == kind:
-            out.append(n)
-    return out
-
-
 def staged(frames, device):
     a = torch.from_numpy(np.stack([f[0] for f in frames])).to(device)
     b = torch.from_numpy(np.stack([f[1] for f in frames])).to(device)
@@ -1042,7 +1006,7 @@ def run_reloc_session(cfg, device):
     from orbslam2_tpu_torch.pipeline.tracking import TrackState
 
     spec = (RELOC_MAP_FRAMES, "forward", cfg.camera, 0)
-    seq = _sequence(spec)
+    seq = drive.sequence(spec)
     black = np.zeros((cfg.camera.height, cfg.camera.width), np.float32)
     a, b = staged(render(spec, range(RELOC_MAP_FRAMES)) + [(black, black)] * RELOC_BLACK, device)
     ra, rb = (torch.from_numpy(x).to(device) for x in seq.frame(RELOC_REVISIT))
@@ -1116,7 +1080,7 @@ def run_orbit_session(cfg, device) -> dict:
 
     n = ORBIT_FRAMES + ORBIT_REVISIT
     spec = (ORBIT_FRAMES, "orbit", cfg.camera, ORBIT_REVISIT)
-    seq = _sequence(spec)
+    seq = drive.sequence(spec)
     a, b = staged(render(spec, range(n)), device)
     secs, decisions, verifications, slice_frames, warmup_s = [], [], [], [], []
     slice_fn, verify_fn = ba.bundle_adjust_slice, loop_closing._verify_candidate
@@ -1200,14 +1164,15 @@ def orbit_outcome(rec: dict) -> dict:
     lc = slam.loop_closer
     return dict(
         loops_closed=lc.loops_closed if lc is not None else 0,
-        loop_frames=frame_events(slam, "loop_closed"),
+        loop_frames=drive.frame_events(slam, "loop_closed"),
         lost=int((~tracked).sum()), lost_frames=np.nonzero(~tracked)[0].tolist(),
         ate=float(evaluation.ate_rmse(poses[tracked], seq.poses[tracked], align=True)),
         ate_all=float(evaluation.ate_rmse(poses, seq.poses, align=True)),
         ate_orbit=float(evaluation.ate_rmse(poses[:ORBIT_FRAMES], seq.poses[:ORBIT_FRAMES],
                                             align=True)),
         keyframes=slam.num_keyframes(), points=slam.num_points(),
-        keyframe_frames=keyframe_frames(slam), fold_frames=frame_events(slam, "gba_folded"))
+        keyframe_frames=drive.keyframe_frames(slam),
+        fold_frames=drive.frame_events(slam, "gba_folded"))
 
 
 def check_orbit_path(device, cfg, label: str, ref: dict, must_close: bool) -> dict:
@@ -1286,7 +1251,7 @@ def check_loop_cpu_agreement(device) -> None:
         return db.present.cpu(), db.vectors.cpu()
 
     def compare(label, g, c, extra_ok=True, bar=LOOP_CPU_DT_M):
-        kg, kc = keyframe_frames(g), keyframe_frames(c)
+        kg, kc = drive.keyframe_frames(g), drive.keyframe_frames(c)
         (pg_, vg), (pc_, vc) = db_rows(g), db_rows(c)
         _, pg, tg = g.frame_poses()
         _, pc, tc = c.frame_poses()
@@ -1303,7 +1268,7 @@ def check_loop_cpu_agreement(device) -> None:
 
     g, _, _ = run_session(small_config(), SMALL_MAP_FRAMES, device, mapping=True, loop_closing=True)
     c, _, _ = run_session(small_config(), SMALL_MAP_FRAMES, cpu, mapping=True, loop_closing=True)
-    compare("small session with loop closing", g, c, keyframe_frames(g) == SMALL_MAP_KFS)
+    compare("small session with loop closing", g, c, drive.keyframe_frames(g) == SMALL_MAP_KFS)
     g, seq, _, _, _, tg, _ = run_reloc_session(reloc_small_config(), device)
     c, _, _, _, _, tc, _ = run_reloc_session(reloc_small_config(), cpu)
     print(f"small relocalization session, card vs CPU: relocalized at revisit {tg} / {tc}, "
@@ -1323,7 +1288,7 @@ def run_localization_session(cfg, n_map: int, yaws, device):
     slam, _, _ = run_session(cfg, n_map, device, mapping=True, loop_closing=True)
     n_kf = slam.num_keyframes()
     spec = (n_map, "forward", cfg.camera, 0, tuple(yaws))
-    turn = _sequence(spec)
+    turn = drive.sequence(spec)
     a, b = staged(render(spec, range(len(yaws))), device)
     slam.activate_localization_mode()
     kernels.launch_counts.update(hamming=0, pose_gn=0)
@@ -1514,7 +1479,7 @@ def check_cli_path(device) -> dict:
         fail("CLI path: the native decoder is not available")
     cam = bench_config().camera
     spec = (CLI_FRAMES, "forward", cam, 0)
-    seq = _sequence(spec)
+    seq = drive.sequence(spec)
     here = os.path.dirname(os.path.abspath(__file__))
     scratch = os.path.join(here, "orbslam2_tpu_torch", "_build")
     os.makedirs(scratch, exist_ok=True)
@@ -1640,7 +1605,7 @@ def matching_frame():
     from orbslam2_tpu_torch.ops.orb import OrbExtractor
 
     cam = CameraConfig()
-    seq = _sequence((2, "forward", cam, 0))
+    seq = drive.sequence((2, "forward", cam, 0))
     image, depth = seq.frame(1)
     feats = OrbExtractor(OrbConfig(num_features=1000, feature_slots=1024))(
         torch.from_numpy(image))
@@ -1878,6 +1843,143 @@ def check_dryrun() -> None:
         fail(f"dryrun_multichip({n}) ran on {n - 1} card(s)")
 
 
+def orbit320_pcg_config():
+    """The 320x240 orbit with `pose_graph_dense_max_k` below its keyframe
+    slots: every loop correction solves the essential graph by PCG."""
+    cfg = orbit320_config()
+    return dataclasses.replace(cfg, solver=dataclasses.replace(
+        cfg.solver, pose_graph_dense_max_k=ORBIT320_PCG_DENSE_MAX_K))
+
+
+def check_orbit_pcg_path(device) -> dict:
+    """Phase 21(a): the 320x240 orbit with the PCG correction on the card:
+    the reference's keyframes through its correction, no fewer loops closed
+    and no more frames lost than the reference's run of the same session,
+    each correction through `pose_graph.optimize_pose_graph_pcg` (counted
+    by `longrun.LoopProbe`, which wraps the solvers) and none through the
+    dense solve, K1 in every verification."""
+    from orbslam2_tpu_torch.longrun import LoopProbe
+
+    cfg, ref, label = orbit320_pcg_config(), ORBIT320_PCG_REFERENCE, "320x240 orbit, PCG"
+    if not cfg.map.max_keyframes > cfg.solver.pose_graph_dense_max_k:
+        fail(f"{label}: {cfg.map.max_keyframes} keyframe slots would take the dense solve")
+    probe = LoopProbe()
+    try:
+        rec = run_orbit_session(cfg, device)
+    finally:
+        probe.close()
+    out = orbit_outcome(rec)
+    secs, ver, solves = rec["secs"], rec["verifications"], probe.counts()
+    loops, lost, n = out["loops_closed"], out["lost"], len(secs)
+    kf_frames = out["keyframe_frames"]
+    print(f"{label}: {loops} loop(s) closed at frames {out['loop_frames']}, {lost} frame(s) lost "
+          f"{out['lost_frames']}, ATE {out['ate']:.5f} m over the tracked frames "
+          f"({out['ate_orbit']:.5f} over the orbit's {ORBIT_FRAMES}), {out['keyframes']} keyframes;"
+          f" the reference on the CPU: {ref['loops_closed']} at {ref['loop_frames']}, "
+          f"{ref['lost']} lost, ATE {ref['ate']:.5f}", flush=True)
+    print(f"{label}: keyframes made at frames {kf_frames}", flush=True)
+    print(f"{label}: essential-graph solves {solves}; correction frame(s) ms "
+          f"{[round(1000 * secs[min(f, n - 1)], 2) for f in out['loop_frames']]}; "
+          f"{len(ver)} Sim3 verifications", flush=True)
+    fps = print_rates(label, secs, kf_frames)
+    prefix = ref["kf_prefix"]
+    if kf_frames[:len(prefix)] != prefix:
+        fail(f"{label}: first keyframes at {kf_frames[:len(prefix)]}, the reference's {prefix}")
+    if loops < ref["loops_closed"] or lost > ref["lost"]:
+        fail(f"{label}: {loops} loops and {lost} lost frames, the reference "
+             f"{ref['loops_closed']} and {ref['lost']}")
+    if solves != {"pcg": loops, "dense": 0}:
+        fail(f"{label}: essential-graph solves {solves} for {loops} corrections")
+    if not ver or min(v["k1"] for v in ver) < 1 or min(rec["launches"].values()) < 1:
+        fail(f"{label}: K1 per verification {[v['k1'] for v in ver]}, launches {rec['launches']}")
+    return {"launches": rec["launches"], "frames": n, "fps": fps, "loops_closed": loops,
+            "lost": lost, "k1_per_verification": [v["k1"] for v in ver], "solves": solves}
+
+
+def check_recycling_cpu_agreement(device) -> None:
+    """Phase 21(c): slot recycling in a live session, the card against
+    the CPU: the 320x240 orbit's first RECYCLE_FRAMES frames with loop
+    closing on and RECYCLE_SLOTS keyframe slots. The reference's keyframes
+    and culled slots in its order, more keyframes inserted than slots, the
+    same database rows, per-frame poses within SMALL_DT_M and SMALL_DEG."""
+    from orbslam2_tpu_torch.pipeline import local_mapping as lm
+    from orbslam2_tpu_torch.pipeline.system import System
+
+    cfg = orbit320_config()
+    cfg = dataclasses.replace(cfg, map=dataclasses.replace(cfg.map, max_keyframes=RECYCLE_SLOTS))
+    frames = render((ORBIT_FRAMES, "orbit", cfg.camera, 0), range(RECYCLE_FRAMES))
+    cull, runs = lm.LocalMapper._cull, {}
+    for d in (device, torch.device("cpu")):
+        culled = []
+        lm.LocalMapper._cull = lambda self, st, c: culled.append(c) or cull(self, st, c)
+        try:
+            a, b = staged(frames, d)
+            slam = System(cfg, device=d)
+            for i in range(RECYCLE_FRAMES):
+                slam.track_rgbd(a[i], b[i], timestamp=i / 30.0)
+        finally:
+            lm.LocalMapper._cull = cull
+        runs[d.type] = (slam, culled, *slam.frame_poses()[1:])
+    (g, cg, pg, tg), (c, cc, pc, tc) = runs["cuda"], runs["cpu"]
+    dt, deg = pose_gaps(pg, pc)
+    kg, kc = drive.keyframe_frames(g), drive.keyframe_frames(c)
+    same_db = (torch.equal(g.loop_closer.db.present.cpu(), c.loop_closer.db.present)
+               and float((g.loop_closer.db.vectors.cpu() - c.loop_closer.db.vectors).abs().max())
+               < 1e-6)
+    print(f"recycling session, card vs CPU: keyframes {kg} / {kc}, culled slots {cg} / {cc}, "
+          f"inserted {int(g.map.num_kf)} / {int(c.map.num_kf)} into {RECYCLE_SLOTS} slots, "
+          f"database rows equal {same_db}, tracked {int(tg.sum())}/{int(tc.sum())}, max dt "
+          f"{dt.max():.3e} m, max rot {deg.max():.3e} deg", flush=True)
+    if not (kg == kc == RECYCLE_KFS and cg == cc == RECYCLE_CULLED
+            and int(g.map.num_kf) == int(c.map.num_kf) > RECYCLE_SLOTS and same_db
+            and tg.all() and tc.all() and dt.max() < SMALL_DT_M and deg.max() < SMALL_DEG):
+        fail("the card and the CPU disagree on the recycling session")
+
+
+def check_scale(device) -> None:
+    """Phase 21(b): `orbslam2_tpu_torch.scale`'s stages at SCALE_SHAPE on
+    the card, its graph stages again on the CPU: the dropped observations,
+    the observation tables, the covisibility, the edge count and edges
+    equal, the pose-graph vertices within TOL_PCG up to each quaternion's
+    sign; the BA cost after 2 iterations finite and below its start."""
+    from orbslam2_tpu_torch import scale
+    from orbslam2_tpu_torch.solvers import pose_graph
+
+    K, P = SCALE_SHAPE
+    cpu = torch.device("cpu")
+    torch.cuda.reset_peak_memory_stats(device)
+    states, res = {}, {}
+    for d in (device, cpu):
+        t0 = time.perf_counter()
+        states[d.type] = scale.build_state(K, P, scale.SLOTS, scale.OBS, scale.SEED, d)
+        res[d.type] = scale.graph_stages(states[d.type], d)
+        res[d.type]["seconds"]["build_s"] = time.perf_counter() - t0 - sum(
+            res[d.type]["seconds"].values())
+    g, c_ = res["cuda"], res["cpu"]
+    gba = scale.ba_stage(states["cuda"], device)
+    peak = torch.cuda.max_memory_allocated(device)
+    gap = packs_gap(g["packs"], c_["packs"])
+    moved = packs_gap(c_["packs"], pose_graph.se3_to_pack(states["cpu"].kf_Tcw))
+    same = {f: torch.equal(getattr(states["cuda"], f).cpu(), getattr(states["cpu"], f))
+            for f in ("mp_obs_kf", "mp_obs_feat", "mp_n_obs", "covis")}
+    same["edges"] = all(torch.equal(a.cpu(), b) for a, b in zip(g["edges"][:2] + g["edges"][3:],
+                                                                 c_["edges"][:2] + c_["edges"][3:]))
+    print(f"scale, K={K} P={P}: edges {g['edges_total']} / {c_['edges_total']}, observations "
+          f"dropped {g['obs_truncated']} / {c_['obs_truncated']} (card / CPU), equal {same}; "
+          f"pose graph card vs CPU max gap {gap:.3e} (the solve moved the packs by up to "
+          f"{moved:.3e}); global BA cost {gba['gba_cost_start']:.6g} "
+          f"-> {gba['gba_cost']:.6g} after 2 iterations; peak device bytes {peak}", flush=True)
+    print(f"scale: seconds on the card {g['seconds']} {gba['seconds']}; on the CPU "
+          f"{c_['seconds']}", flush=True)
+    if not (all(same.values()) and g["edges_total"] == c_["edges_total"]
+            and g["obs_truncated"] == c_["obs_truncated"]):
+        fail(f"scale: the card's integer results differ from the CPU's ({same})")
+    if not (torch.isfinite(g["packs"]).all() and gap <= TOL_PCG):
+        fail(f"scale: pose graph card vs CPU gap {gap}")
+    if not (np.isfinite(gba["gba_cost"]) and gba["gba_cost"] < gba["gba_cost_start"]):
+        fail(f"scale: BA cost {gba['gba_cost_start']} -> {gba['gba_cost']}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -1885,7 +1987,7 @@ def main() -> None:
     device = torch.device("cuda")
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}",
           flush=True)
-    card = card_line()
+    card = drive.card_line()
     print(card, flush=True)
 
     start_render_pool()
@@ -1940,14 +2042,19 @@ def run_phases(device, card: str) -> None:
     check_sharded(device, card)
     check_dryrun()
     print(f"graft entry and sharded phases: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    orbit_pcg = check_orbit_pcg_path(device)
+    check_scale(device)
+    check_recycling_cpu_agreement(device)
+    print(f"long-session phases: {time.perf_counter() - t0:.1f} s", flush=True)
 
     if "jax" in sys.modules:
         fail("jax was imported")
     paths = (main_path, mapping, stereo_path, mono_path, reloc, orbit640, orbit320, localization,
-             graft)
+             graft, orbit_pcg)
     names = ("rgbd_tracking", "rgbd_mapping", "stereo_mapping", "mono_mapping",
              "rgbd_relocalization", "rgbd_orbit_640", "rgbd_orbit_320", "rgbd_localization",
-             "graft_entry")
+             "graft_entry", "rgbd_orbit_320_pcg")
     for k, key in ((k1, "hamming"), (k2, "pose_gn")):
         k["launches"] = sum(p["launches"][key] for p in paths)
         k["launches_per_path"] = {name: {"launches": p["launches"][key], "frames": p["frames"]}
@@ -1956,7 +2063,8 @@ def run_phases(device, card: str) -> None:
     per["rgbd_mapping"]["per_keyframe_step"] = mapping["k1_per_keyframe_step"]
     per["stereo_mapping"]["per_stereo_match"] = stereo_path["k1_per_stereo_match"]
     per["mono_mapping"]["per_init_search"] = mono_path["k1_per_init_search"]
-    for name, p in (("rgbd_orbit_640", orbit640), ("rgbd_orbit_320", orbit320)):
+    for name, p in (("rgbd_orbit_640", orbit640), ("rgbd_orbit_320", orbit320),
+                    ("rgbd_orbit_320_pcg", orbit_pcg)):
         per[name]["per_verification"] = p["k1_per_verification"]
     for k, key in ((k1, "hamming"), (k2, "pose_gn")):
         k["launches_per_path"]["rgbd_relocalization"]["in_relocalizing_frame"] = \

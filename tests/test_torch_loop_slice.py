@@ -212,22 +212,27 @@ def test_orbit_loop_closes():
 
 
 @pytest.mark.slow
-def test_correction_matches_reference_on_its_orbit_state():
+@pytest.mark.parametrize("dense_max_k", [128, 64], ids=["dense", "pcg"])
+def test_correction_matches_reference_on_its_orbit_state(dense_max_k):
     """The reference's 320x240 orbit session up to its correction (frame
     173) and its global BA's fold-in, with the states and arguments taken
     where the reference's loop closer receives them; the port's
     `correct_loop`, global-BA slices and fold-in then run on the same
     states: poses within 1e-4, points within max(1e-3 m, 5e-4 z^2), the
     bindings, observations and covisibility equal, the snapshot problem
-    equal, the fold-in exact."""
+    equal, the fold-in exact. With `pose_graph_dense_max_k` 64, below the
+    orbit's 96 keyframe slots, both packages solve the essential graph by
+    PCG, the live long session's branch."""
     import jax.numpy as jnp
 
+    from orbslam2_tpu.config import SolverConfig
     from orbslam2_tpu.pipeline import loop_closing as jlc
     from orbslam2_tpu_torch import convert
+    from orbslam2_tpu_torch.longrun import LoopProbe
     from orbslam2_tpu_torch.pipeline import loop_closing as tlc
     from orbslam2_tpu_torch.solvers import ba as tba
 
-    cfg = _orbit_cfg()
+    cfg = dataclasses.replace(_orbit_cfg(), solver=SolverConfig(pose_graph_dense_max_k=dense_max_k))
     seq = _orbit_seq(cfg)
 
     def as_numpy(st):
@@ -269,7 +274,14 @@ def test_correction_matches_reference_on_its_orbit_state():
     st = convert.map_state_from_numpy(pre["map"], "cpu")
     t = lambda x: convert.to_tensor(x, "cpu")  # noqa: E731
     lc._guided_pt, lc._loop_pts, lc._edge_cap = t(pre["guided"]), tuple(map(t, pre["loop"])), pre["edge_cap"]
-    lc.correct_loop(st, pre["kf_id"], pre["loop_kf"], tuple(map(t, pre["S12"])), matches=t(pre["matches"]))
+    probe = LoopProbe()
+    try:
+        lc.correct_loop(st, pre["kf_id"], pre["loop_kf"], tuple(map(t, pre["S12"])),
+                        matches=t(pre["matches"]))
+    finally:
+        probe.close()
+    pcg = cfg.map.max_keyframes > dense_max_k
+    assert probe.counts() == {"pcg": int(pcg), "dense": int(not pcg)}
     post = seen["post"]
     valid = post["kf_valid"]
     np.testing.assert_allclose(st.kf_Tcw.numpy()[valid], post["kf_Tcw"][valid], atol=1e-4)

@@ -19,8 +19,9 @@ def test_port_imports_no_jax():
     port's session, its converters, its kernels, its loop-closing and
     relocalization modules, its dataset loaders, native decoder, drawers,
     profiling and command-line runner, its sharded solvers and entry
-    points, `chip_smoke.py`, the tool that times the relocalization
-    warm-up, or the functions the parallel tests run in their ranks."""
+    points, its long-run, scale and bench drivers, `chip_smoke.py`, the
+    tool that times the relocalization warm-up, or the functions the
+    parallel tests run in their ranks."""
     code = (
         "import sys\n"
         "import orbslam2_tpu_torch.pipeline.system, orbslam2_tpu_torch.convert, "
@@ -36,6 +37,7 @@ def test_port_imports_no_jax():
         "import orbslam2_tpu_torch.parallel.group, orbslam2_tpu_torch.parallel.sharded_ba, "
         "orbslam2_tpu_torch.parallel.sharded_bow, orbslam2_tpu_torch.parallel.sharded_pose_graph, "
         "orbslam2_tpu_torch.graft_entry, tests.torch_ranks\n"
+        "import orbslam2_tpu_torch.longrun, orbslam2_tpu_torch.scale, orbslam2_tpu_torch.bench\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
         "ref = sorted(m for m in sys.modules if m.split('.')[0] == 'orbslam2_tpu')\n"
         "assert not ref, ref\n"

@@ -9,8 +9,13 @@ plus a 35-frame revisit at 640x480 / 1000 features, `th_depth` 130),
 `orbit320` (`tests/test_loop_reloc.py::test_orbit_loop_closes`'s
 configuration), `reloc640` (the first 34 frames of the forward dolly at
 bench.py's configuration, 3 black frames, then frame 10 again) and
-`reloc_small` (the same at `tests/test_e2e_rgbd.py::small_cfg`); all four
-by default. Prints one JSON line per session: loops closed, frames lost,
+`reloc_small` (the same at `tests/test_e2e_rgbd.py::small_cfg`),
+`orbit320_pcg` (`orbit320` with `pose_graph_dense_max_k` 64, below its 96
+keyframe slots, so each correction takes the PCG essential-graph solve) and
+`longrun N` (`stress_longrun.py`'s configuration at `pipeline_depth=0`
+over the first N frames of its repeated 620-frame orbit; N defaults to
+800, one revolution and 180 frames of the second); the first four by
+default. Prints one JSON line per session: loops closed, frames lost,
 ATE over the tracked frames (bench.py's definition), over all frames and
 over the orbit's frames alone, the frame of each loop correction, the
 keyframes' frames and the rejected Sim3 verifications, and for the
@@ -37,6 +42,7 @@ jax.config.update("jax_platforms", "cpu")
 
 from orbslam2_tpu.config import (  # noqa: E402
     CameraConfig, MapConfig, OrbConfig, SlamConfig, Sensor, SolverConfig, TrackingConfig,
+    VocabConfig,
 )
 from orbslam2_tpu.io import synthetic  # noqa: E402
 from orbslam2_tpu.pipeline.system import System  # noqa: E402
@@ -67,6 +73,20 @@ SMALL = SlamConfig(
     map=MapConfig(max_keyframes=32, max_points=8192, max_local_points=4096),
     tracking=TrackingConfig(th_depth=40.0),
 )
+ORBIT320_PCG = dataclasses.replace(ORBIT320, solver=SolverConfig(pose_graph_dense_max_k=64))
+# stress_longrun.py:64-82, synchronous
+LONGRUN = SlamConfig(
+    sensor=Sensor.RGBD,
+    camera=CameraConfig(fx=240.0, fy=240.0, cx=159.5, cy=119.5, bf=24.0, fps=30.0,
+                        width=320, height=240),
+    orb=OrbConfig(num_features=400, feature_slots=512, candidates_per_level=1024),
+    map=MapConfig(max_keyframes=512, max_points=65536, max_local_points=4096),
+    tracking=TrackingConfig(th_depth=130.0, pipeline_depth=0),
+    solver=SolverConfig(ba_max_points=2048, local_ba_iters_first=3, local_ba_iters_second=4,
+                        ba_max_local_kfs=24, ba_max_fixed_kfs=16),
+    vocab=VocabConfig(warmup_correction=True, warmup_reloc=True, reservoir_cap=262144),
+)
+LONGRUN_REV = 620
 
 
 def _loop_frames(slam) -> list[int]:
@@ -81,8 +101,11 @@ def _loop_frames(slam) -> list[int]:
 
 
 def orbit(cfg, n_orbit=170, n_revisit=35):
+    """The orbit of `n_orbit` frames, its poses repeated for `n_revisit`
+    more frames."""
     seq = synthetic.textured_sequence(n_frames=n_orbit, kind="orbit", cam=cfg.camera)
-    seq = dataclasses.replace(seq, poses=np.concatenate([seq.poses, seq.poses[:n_revisit]]))
+    reps = -(-(n_orbit + n_revisit) // n_orbit)
+    seq = dataclasses.replace(seq, poses=np.concatenate([seq.poses] * reps)[:n_orbit + n_revisit])
     slam = System(cfg)
     t0 = time.perf_counter()
     for i in range(n_orbit + n_revisit):
@@ -108,6 +131,8 @@ def orbit(cfg, n_orbit=170, n_revisit=35):
         lost_frames=np.nonzero(~tracked)[0].tolist(),
         sim3_fails=[(e["kf_id"], e["cand"], e["n_brute"], e["num_inliers"], e["n_guided"])
                     for e in slam.log.events if e["event"] == "loop_sim3_fail"],
+        keyframes_inserted=int(slam.map.num_kf),
+        edge_truncations=lc.edge_truncations if lc is not None else 0,
         cpu_wall_s=wall,
     )
 
@@ -144,14 +169,23 @@ SESSIONS = {
     "orbit320": lambda: orbit(ORBIT320),
     "reloc640": lambda: reloc(BENCH),
     "reloc_small": lambda: reloc(SMALL),
+    "orbit320_pcg": lambda: orbit(ORBIT320_PCG),
+    "longrun": lambda n=800: orbit(LONGRUN, LONGRUN_REV, int(n) - LONGRUN_REV),
 }
+DEFAULT = ("orbit640", "orbit320", "reloc640", "reloc_small")
 
 
 def main():
-    names = sys.argv[1:] or list(SESSIONS)
-    for name in names:
-        out = SESSIONS[name]()
-        print(json.dumps({"session": name, "devices": len(jax.devices()), **out}), flush=True)
+    args = sys.argv[1:] or list(DEFAULT)
+    i = 0
+    while i < len(args):
+        name = args[i]
+        # `longrun` takes its frame count as the next argument, when one is given
+        extra = [args[i + 1]] if i + 1 < len(args) and args[i + 1].isdigit() else []
+        i += 1 + len(extra)
+        out = SESSIONS[name](*extra)
+        print(json.dumps({"session": " ".join([name, *extra]), "devices": len(jax.devices()),
+                          **out}), flush=True)
 
 
 if __name__ == "__main__":

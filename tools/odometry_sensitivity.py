@@ -39,6 +39,7 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import chip_smoke  # noqa: E402
+from orbslam2_tpu_torch import drive  # noqa: E402
 
 SMALL_YAWS = list(chip_smoke.LOC_YAWS[:28]) + [60.0, 50.0, 40.0]
 BENCH_YAWS = list(chip_smoke.LOC_YAWS[:44])
@@ -129,7 +130,7 @@ def reference_session(cfg, n_map: int, yaws, scale: float, project: str | None):
 
     cfg = reference_config(cfg)
     seq = synthetic.textured_sequence(n_frames=n_map, kind="forward", seed=0, cam=cfg.camera)
-    turn = dataclasses.replace(seq, poses=chip_smoke.yawed_poses(seq.poses[-1], yaws))
+    turn = dataclasses.replace(seq, poses=drive.yawed_poses(seq.poses[-1], yaws))
     rng = np.random.default_rng(0)
     plain_search, plain_opt = match.search_frame_to_frame, pose_opt.pose_optimize
     plain_step = Tracker.localization_vo_step
@@ -210,7 +211,7 @@ def main():
             from orbslam2_tpu_torch import kernels
 
             kernels.build()
-            label += f", {chip_smoke.card_line()}"
+            label += f", {drive.card_line()}"
         chip_smoke.start_render_pool()
         try:
             runs = [port_session(cfg, n_map, yaws, s, args.project, args.device) for s in scales]
@@ -219,8 +220,8 @@ def main():
     a, sa, vo = runs[0]
     sb = runs[-1][1]
     dt, deg = chip_smoke.pose_gaps(a, runs[-1][0])
-    truth = chip_smoke.yawed_poses(chip_smoke._sequence((n_map, "forward", cfg.camera, 0)).poses[-1],
-                                   yaws)
+    truth = drive.yawed_poses(drive.sequence((n_map, "forward", cfg.camera, 0)).poses[-1],
+                              yaws)
     err = np.linalg.norm(np.einsum("nij,njk->nik", a.astype(np.float64),
                                    np.linalg.inv(truth))[:, :3, 3], axis=1)
     R = a[:, :3, :3].astype(np.float64)

@@ -31,6 +31,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 import chip_smoke  # noqa: E402
+from orbslam2_tpu_torch import drive  # noqa: E402
 
 
 def one_session(flag: str) -> dict:
@@ -60,7 +61,7 @@ def one_session(flag: str) -> dict:
         chip_smoke.stop_render_pool()
         tracking.Tracker.warmup_reloc = warm_fn
     first = chip_smoke.RELOC_MAP_FRAMES + chip_smoke.RELOC_BLACK
-    return dict(card=chip_smoke.card_line(), warmup_reloc=flag == "on", warmup_s=warmup_s,
+    return dict(card=drive.card_line(), warmup_reloc=flag == "on", warmup_s=warmup_s,
                 ok_before=ok_before, lost=lost, relocalized_at_try=tries,
                 revisit_ms=[1000 * s for s in secs[first:]],
                 t_err_m=chip_smoke.reloc_error(slam, seq) if tries is not None else None)

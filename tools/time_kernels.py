@@ -27,7 +27,7 @@ REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
 import chip_smoke  # noqa: E402
-from orbslam2_tpu_torch import config, kernels  # noqa: E402
+from orbslam2_tpu_torch import config, drive, kernels  # noqa: E402
 from orbslam2_tpu_torch.geometry.camera import Intrinsics  # noqa: E402
 from orbslam2_tpu_torch.ops import hamming  # noqa: E402
 from orbslam2_tpu_torch.solvers import pose_opt  # noqa: E402
@@ -64,7 +64,7 @@ def main() -> None:
     if len(sys.argv) != 2 or not torch.cuda.is_available():
         sys.exit(__doc__)
     dev = torch.device("cuda")
-    print(chip_smoke.card_line(), flush=True)
+    print(drive.card_line(), flush=True)
     libs = {"other": build(Path(sys.argv[1]).resolve(), "other"), "this": build(REPO, "this")}
     rng = np.random.default_rng(2)
     for n, m in [(1024, 1024), (1280, 1280), (2525, 1024), (4096, 1024)]:
