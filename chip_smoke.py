@@ -127,7 +127,22 @@ Phases, each printing its own lines; any failed check exits non-zero:
    peak device bytes printed; last, slot recycling card against CPU: the
    320x240 orbit's first 28 frames through a 7-slot pool, the reference's
    keyframes and culled slots (1, then 2; frame 27's keyframe recycles
-   slot 1), the same database rows, poses within 5 mm and 0.2 degrees.
+   slot 1), the same database rows, poses within 5 mm and 0.2 degrees;
+22. the pipelined session (`pipeline_depth` 2, bench.py's; each frame
+   resolved two frames after its dispatch): (a) phase 7's 72 frames with
+   loop closing on: every frame tracked, ATE < 0.01 m and within 5e-3 m
+   of phase 7's, phase 7's keyframe count, two frames in flight at the
+   end, K1 and K2 launched at least 3 times a frame, frames/s printed
+   beside phase 7's; (b) phase 8's 320x240 session at depth 2 on the card
+   and on the CPU: frames 0, 6 and 17 keyframes, poses within 5 mm and
+   0.2 degrees; (c) phase 12's blackout at depth 2: the first black frame
+   resolved LOST with two frames in flight, which are reprocessed (their
+   keyframes folded in first, counted), then a relocalization within 3
+   frames at < 0.1 m; and a one-frame gap in phase 8's dolly (60 frames,
+   frame 54 black): the keyframe that frame 55's dispatch inserted folded
+   in as orphaned, the reference's keyframe records and relocalizing frame
+   (`tools/loop_reference_targets.py --depth 2 gap320`), every other frame
+   tracked.
 
 How a kernel is timed, at each shape: `ms` is its device time, 50
 launches into preallocated outputs captured in one CUDA graph and the
@@ -140,7 +155,7 @@ never calls; `bound_ms` the larger of its bytes over 3.35 TB/s and its
 operations over the peak rate of their type.
 
 The launch counts are set to 0 just before each path is driven and read
-just after; the kernels line sums the ten paths and gives each path's
+just after; the kernels line sums the twelve paths and gives each path's
 counts. The last two lines are that JSON object of the kernels' launch
 counts, errors and times, and the JSON result line. Exits non-zero,
 printing no result, when no CUDA device is available.
@@ -248,6 +263,19 @@ ORBIT320_PCG_DENSE_MAX_K = 64
 ORBIT320_PCG_REFERENCE = dict(loops_closed=1, loop_frames=[173], lost=1, ate=2.4750579503916805,
                               ate_orbit=0.015863539123523614,
                               kf_prefix=ORBIT320_REFERENCE["kf_prefix"])
+# phase 22: bench.py's pipeline depth, and the ATE gap to phase 7's
+# synchronous session that tests/test_e2e_rgbd.py allows a pipelined one
+PIPE_DEPTH, PIPE_ATE_GAP_M = 2, 5e-3
+# phase 22: the reference's run of the one-frame gap at depth 2
+# (tools/loop_reference_targets.py --depth 2 gap320, CPU, one device):
+# frame 54 of the mapping slice's 320x240 dolly black, after 6 keyframes;
+# frame 55's dispatch inserts keyframe 6, folded in as orphaned when frame
+# 54 is resolved LOST; reprocessed, frame 55 relocalizes (under frame id 57)
+GAP_FRAMES, GAP_BLACK_AT = 60, 54
+GAP_REFERENCE = dict(
+    keyframe_events=[[0, 0, False], [1, 6, False], [2, 17, False], [3, 29, False],
+                     [4, 40, False], [5, 50, False], [6, 55, True]],
+    relocalized=[57])
 # phase 21: stress_scale.py's map (orbslam2_tpu_torch.scale)
 SCALE_SHAPE = (1024, 98304)
 # phase 21: the 320x240 orbit's first 28 frames through a 7-slot pool, as
@@ -823,7 +851,7 @@ def check_mapping_path(device) -> dict:
             fail(f"mapping path launched {name} {n} times, fewer than 3 per frame")
     return {"launches": launches, "ate_m": ate, "fps": fps, "frames": MAP_FRAMES,
             "union_rows": int(np.median(probe.union_rows)), "slots": cfg.orb.feature_slots,
-            "k1_per_keyframe_step": probe.k1_per_step}
+            "k1_per_keyframe_step": probe.k1_per_step, "keyframes": len(kf_frames)}
 
 
 def time_k1_at(device, rows: int, cols: int, label: str) -> dict:
@@ -929,9 +957,10 @@ def check_small_cpu_agreement(device, cfg, n_frames: int, label: str, mapping: b
     initialization tracked, per-frame poses within 5 mm and 0.2 degrees."""
     gpu, _, _ = run_session(cfg, n_frames, device, mapping=mapping)
     cpu, _, _ = run_session(cfg, n_frames, torch.device("cpu"), mapping=mapping)
-    kg, kc = drive.keyframe_frames(gpu), drive.keyframe_frames(cpu)
+    # frame_poses first: it resolves the frames a pipelined session has in flight
     _, pg, tg = gpu.frame_poses()
     _, pc, tc = cpu.frame_poses()
+    kg, kc = drive.keyframe_frames(gpu), drive.keyframe_frames(cpu)
     both = tg & tc
     dt, deg = pose_gaps(pg[both], pc[both])
     print(f"{label}, card vs CPU: initialised at frame {first_tracked(tg)} / {first_tracked(tc)}, "
@@ -1980,6 +2009,106 @@ def check_scale(device) -> None:
         fail(f"scale: BA cost {gba['gba_cost_start']} -> {gba['gba_cost']}")
 
 
+def at_depth(cfg, depth: int = PIPE_DEPTH):
+    return dataclasses.replace(cfg, tracking=dataclasses.replace(cfg.tracking,
+                                                                 pipeline_depth=depth))
+
+
+def check_pipelined_path(device, mapping: dict) -> tuple[dict, dict]:
+    """Phase 22: the mapping path, the small mapping session card against
+    CPU and the blackout, each at depth PIPE_DEPTH. Returns the mapping
+    and the blackout paths' records."""
+    from orbslam2_tpu_torch import evaluation, kernels
+    from orbslam2_tpu_torch.pipeline.system import System
+
+    cfg = at_depth(bench_config())
+    kernels.launch_counts.update(hamming=0, pose_gn=0)
+    slam, seq, secs = run_session(cfg, MAP_FRAMES, device, mapping=True, loop_closing=True)
+    launches = dict(kernels.launch_counts)
+    in_flight = len(slam._pending)
+    _, poses, tracked = slam.frame_poses()
+    if poses.shape != (MAP_FRAMES, 4, 4) or not np.isfinite(poses).all():
+        fail(f"pipelined path: poses of shape {poses.shape}, finite {np.isfinite(poses).all()}")
+    ate = evaluation.ate_rmse(poses, seq.poses, align=True)
+    kf_frames = drive.keyframe_frames(slam)
+    print(f"pipelined path: depth {PIPE_DEPTH}, {int(tracked.sum())}/{MAP_FRAMES} frames tracked, "
+          f"ATE {ate:.5f} m (phase 7: {mapping['ate_m']:.5f}), {slam.num_points()} points, "
+          f"{len(kf_frames)} keyframes made at frames {kf_frames} (phase 7: "
+          f"{mapping['keyframes']}), {in_flight} frames in flight after the last call", flush=True)
+    fps = print_rates("pipelined path", secs, kf_frames)
+    print(f"pipelined path: {fps:.2f} frames/s at depth {PIPE_DEPTH} with loop closing on, "
+          f"phase 7 {mapping['fps']:.2f} at depth 0 without; launches {launches} over "
+          f"{MAP_FRAMES - 1} frames after initialization", flush=True)
+    if not (tracked.all() and ate < MAP_ATE_LIMIT_M and abs(ate - mapping["ate_m"]) < PIPE_ATE_GAP_M):
+        fail(f"pipelined path: tracked {int(tracked.sum())}, ATE {ate} (phase 7 {mapping['ate_m']})")
+    if len(kf_frames) != mapping["keyframes"] or in_flight != PIPE_DEPTH:
+        fail(f"pipelined path: {len(kf_frames)} keyframes (phase 7 {mapping['keyframes']}), "
+             f"{in_flight} frames in flight")
+    for name, n in launches.items():
+        if n < 3 * (MAP_FRAMES - 1):
+            fail(f"pipelined path launched {name} {n} times, fewer than 3 per frame")
+    pipelined = {"launches": launches, "ate_m": ate, "fps": fps, "frames": MAP_FRAMES}
+
+    check_small_cpu_agreement(device, at_depth(small_config()), SMALL_MAP_FRAMES,
+                              f"small mapping session at depth {PIPE_DEPTH}",
+                              expect_kfs=SMALL_MAP_KFS)
+
+    reprocessed, stale_fn = [], System._reprocess_stale
+
+    def counted(self, extra=None):
+        reprocessed.append(len(self._pending) + (extra is not None))
+        return stale_fn(self, extra)
+
+    System._reprocess_stale = counted
+    try:
+        kernels.launch_counts.update(hamming=0, pose_gn=0)
+        slam, seq, secs, ok_before, lost, tries, per_try = run_reloc_session(
+            at_depth(bench_config()), device)
+        launches = dict(kernels.launch_counts)
+    finally:
+        System._reprocess_stale = stale_fn
+    err = reloc_error(slam, seq) if tries is not None else float("inf")
+    orphaned = [e["kf_id"] for e in slam.log.of("keyframe") if e.get("orphaned")]
+    states = [r.state.name for r in slam.results]
+    print(f"pipelined relocalization: OK before the blackout {ok_before}, LOST after it {lost}; "
+          f"frames reprocessed after a LOST resolve {reprocessed}, orphaned keyframes folded in "
+          f"{orphaned}; states from frame {RELOC_MAP_FRAMES}: {states[RELOC_MAP_FRAMES:]}; "
+          f"relocalized at revisit {tries}, translation error {err:.6f} m; launches {launches}",
+          flush=True)
+    if not (ok_before and lost and reprocessed == [PIPE_DEPTH]):
+        fail(f"pipelined relocalization: before {ok_before}, lost {lost}, reprocessed {reprocessed}")
+    if tries is None or not err < RELOC_ERR_M or min(per_try[tries].values()) < 1:
+        fail(f"pipelined relocalization: relocalized at {tries}, error {err}, "
+             f"launches {per_try}")
+    reloc = {"launches": launches, "frames": len(secs), "t_err_m": err, "orphaned": orphaned}
+
+    # phase 8's configuration with the CPU tests' 2048 FAST candidates a level
+    cfg = at_depth(small_config())
+    cfg = dataclasses.replace(cfg, orb=dataclasses.replace(cfg.orb, candidates_per_level=2048))
+    spec = (GAP_FRAMES, "forward", cfg.camera, 0)
+    frames = render(spec, range(GAP_FRAMES))
+    black = np.zeros((cfg.camera.height, cfg.camera.width), np.float32)
+    frames[GAP_BLACK_AT] = (black, black)
+    a, b = staged(frames, device)
+    slam, secs = System(cfg, device=device), []
+    for i in range(GAP_FRAMES):
+        timed_track(slam, a[i], b[i], i, secs)
+    _, poses, tracked = slam.frame_poses()
+    events = [[e["kf_id"], e["frame_id"], bool(e.get("orphaned"))]
+              for e in slam.log.of("keyframe")]
+    relocalized = [e["frame_id"] for e in slam.log.of("relocalized")]
+    print(f"pipelined gap: frame {GAP_BLACK_AT} black; keyframe records (id, frame, orphaned) "
+          f"{events}; relocalized at frame id {relocalized}; tracked {int(tracked.sum())}/"
+          f"{GAP_FRAMES}; the reference: {GAP_REFERENCE}", flush=True)
+    if not (events == GAP_REFERENCE["keyframe_events"]
+            and relocalized == GAP_REFERENCE["relocalized"]
+            and np.flatnonzero(~tracked).tolist() == [GAP_BLACK_AT]
+            and np.isfinite(poses).all()):
+        fail("pipelined gap: the orphaned keyframe's fold-in differs from the reference's")
+    reloc["gap_orphaned"] = [e[0] for e in events if e[2]]
+    return pipelined, reloc
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -2047,14 +2176,17 @@ def run_phases(device, card: str) -> None:
     check_scale(device)
     check_recycling_cpu_agreement(device)
     print(f"long-session phases: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    pipelined, pipelined_reloc = check_pipelined_path(device, mapping)
+    print(f"pipelined phases: {time.perf_counter() - t0:.1f} s", flush=True)
 
     if "jax" in sys.modules:
         fail("jax was imported")
     paths = (main_path, mapping, stereo_path, mono_path, reloc, orbit640, orbit320, localization,
-             graft, orbit_pcg)
+             graft, orbit_pcg, pipelined, pipelined_reloc)
     names = ("rgbd_tracking", "rgbd_mapping", "stereo_mapping", "mono_mapping",
              "rgbd_relocalization", "rgbd_orbit_640", "rgbd_orbit_320", "rgbd_localization",
-             "graft_entry", "rgbd_orbit_320_pcg")
+             "graft_entry", "rgbd_orbit_320_pcg", "rgbd_pipelined", "rgbd_pipelined_relocalization")
     for k, key in ((k1, "hamming"), (k2, "pose_gn")):
         k["launches"] = sum(p["launches"][key] for p in paths)
         k["launches_per_path"] = {name: {"launches": p["launches"][key], "frames": p["frames"]}

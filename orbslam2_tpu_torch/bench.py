@@ -1,13 +1,14 @@
 """The headline benchmark: the port's counterpart of `bench.py`.
 
     python -m orbslam2_tpu_torch.bench [--all-sensors] [--profile]
-        [--events EVENTS.jsonl] [--device cuda|cpu]
+        [--pipeline-depth N] [--events EVENTS.jsonl] [--device cuda|cpu]
 
 Two live RGB-D segments through `System.track_rgbd` at bench.py's
 640x480 configuration (`bench.py:83-103`; 1000 features, 96 keyframe
 slots, 16384 points, local BA over 24 + 16 keyframes and 4096 points,
-both loop-closer warm-ups), synchronous (`pipeline_depth=0`; bench.py
-runs at 2, which the port does not do):
+both loop-closer warm-ups), at bench.py's `pipeline_depth` 2 (each
+frame resolved two frames after its dispatch) unless `--pipeline-depth`
+asks for another (0: each frame resolved before its call returns):
 
 * A, the forward dolly: 72 frames of steady tracking and mapping;
 * B, the orbit and its revisit (170 + 35 frames, `th_depth` 130): the
@@ -16,8 +17,9 @@ runs at 2, which the port does not do):
 The frames are rendered by worker processes and staged on the device
 before each segment; frames 0-7 of each warm up; the final `flush` is
 counted in the last frame. The timing is closed loop: each frame's time
-ends with its pose on the host. The headline is the measured frames over
-their total time across both segments.
+ends with its pose on the host (the pose is read with the frame's
+keyframe decision, so pipelined or not). The headline is the measured
+frames over their total time across both segments.
 
 `--all-sensors` adds 24 stereo frames of the dolly and 24 monocular frames
 of the lateral sequence (bench.py's mono configuration), frames/s over
@@ -63,13 +65,13 @@ WAIT_CALLS = {"sync": ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEv
 
 
 def base_config() -> c.SlamConfig:
-    """`bench.py:83-103`, synchronous."""
+    """`bench.py:83-103`."""
     return c.SlamConfig(
         sensor=c.Sensor.RGBD,
         camera=c.CameraConfig(fx=480.0, fy=480.0, cx=319.5, cy=239.5, bf=48.0, fps=30.0),
         orb=c.OrbConfig(num_features=1000, feature_slots=1024),
         map=c.MapConfig(max_keyframes=96, max_points=16384, max_local_points=4096),
-        tracking=c.TrackingConfig(th_depth=40.0, pipeline_depth=0),
+        tracking=c.TrackingConfig(th_depth=40.0, pipeline_depth=2),
         solver=c.SolverConfig(ba_max_points=4096, local_ba_iters_first=3,
                               local_ba_iters_second=4, ba_max_local_kfs=24, ba_max_fixed_kfs=16),
         vocab=c.VocabConfig(warmup_correction=True, warmup_reloc=True),
@@ -190,8 +192,10 @@ def segment_record(slam, wall, ate, lost, launches) -> dict:
 
 
 def run(device, all_sensors: bool = False, profile: bool = False,
-        events: str | None = None) -> dict:
+        events: str | None = None, pipeline_depth: int = 2) -> dict:
     base = base_config()
+    base = dataclasses.replace(
+        base, tracking=dataclasses.replace(base.tracking, pipeline_depth=pipeline_depth))
     timer = profiling.StageTimer(device)
     with drive.RenderPool() as pool:
         n_a = PROFILE_FORWARD if profile else FORWARD
@@ -254,10 +258,13 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="per-stage times and the host's share of waits for the device")
     ap.add_argument("--events", default=None, help="write both segments' events as JSON lines")
+    ap.add_argument("--pipeline-depth", type=int, default=2,
+                    help="frames in flight before each resolve (default 2, bench.py's)")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                     help="where the sessions run (default: the CUDA device)")
     args = ap.parse_args(argv)
-    out = run(drive.require_device(args.device), args.all_sensors, args.profile, args.events)
+    out = run(drive.require_device(args.device), args.all_sensors, args.profile, args.events,
+              args.pipeline_depth)
     print(json.dumps(out), flush=True)
     return 0
 

@@ -1,13 +1,13 @@
 """The long live session: the port's counterpart of `stress_longrun.py`.
 
-    python -m orbslam2_tpu_torch.longrun [--frames 2604] [--out LONGRUN.json]
-        [--events EVENTS.jsonl] [--device cuda|cpu]
+    python -m orbslam2_tpu_torch.longrun [--frames 2604] [--pipeline-depth N]
+        [--out LONGRUN.json] [--events EVENTS.jsonl] [--device cuda|cpu]
 
 2604 frames of the 320x240 textured-room orbit (620 frames a revolution,
 4.2 revolutions) through `System.track_rgbd` at `stress_longrun.py`'s
 configuration: 400 features, `max_keyframes=512`, `max_points=65536`,
-`reservoir_cap=262144`, both loop-closer warm-ups, synchronous
-(`pipeline_depth=0`; `stress_longrun.py` runs at 2). A pool that fills
+`reservoir_cap=262144`, both loop-closer warm-ups, and its
+`pipeline_depth` 2 unless `--pipeline-depth` asks for another. A pool that fills
 recycles its slots (`LocalMapper._pressure_cull`; this sequence inserts
 about 180 keyframes, so the 512 slots do not fill), and past
 `pose_graph_dense_max_k` (128) every loop correction solves the essential
@@ -26,6 +26,7 @@ the card unless `--device cpu` is given, and fails without one.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 
@@ -45,14 +46,14 @@ WINDOW = 100       # frames per fps window
 
 
 def longrun_config() -> c.SlamConfig:
-    """`stress_longrun.py:64-82`, synchronous."""
+    """`stress_longrun.py:64-82`."""
     return c.SlamConfig(
         sensor=c.Sensor.RGBD,
         camera=c.CameraConfig(fx=240.0, fy=240.0, cx=159.5, cy=119.5, bf=24.0, fps=30.0,
                               width=320, height=240),
         orb=c.OrbConfig(num_features=400, feature_slots=512, candidates_per_level=1024),
         map=c.MapConfig(max_keyframes=512, max_points=65536, max_local_points=4096),
-        tracking=c.TrackingConfig(th_depth=130.0, pipeline_depth=0),
+        tracking=c.TrackingConfig(th_depth=130.0, pipeline_depth=2),
         solver=c.SolverConfig(ba_max_points=2048, local_ba_iters_first=3,
                               local_ba_iters_second=4, ba_max_local_kfs=24,
                               ba_max_fixed_kfs=16),
@@ -210,13 +211,18 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=2604,
                     help="frames of the repeated orbit (default 2604, 4.2 revolutions)")
+    ap.add_argument("--pipeline-depth", type=int, default=2,
+                    help="frames in flight before each resolve (default 2, stress_longrun.py's)")
     ap.add_argument("--out", default=None, help="also write the JSON record here")
     ap.add_argument("--events", default=None, help="write the event stream here as JSON lines")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                     help="where the session runs (default: the CUDA device)")
     args = ap.parse_args(argv)
     device = drive.require_device(args.device)
-    out, slam = run(longrun_config(), args.frames, device)
+    cfg = longrun_config()
+    cfg = dataclasses.replace(
+        cfg, tracking=dataclasses.replace(cfg.tracking, pipeline_depth=args.pipeline_depth))
+    out, slam = run(cfg, args.frames, device)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(out, f, indent=1)

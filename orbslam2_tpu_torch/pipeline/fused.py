@@ -6,8 +6,10 @@ Port of `orbslam2_tpu.pipeline.fused`:
   and `track_frame_rgbd` and `track_frame_stereo` (frame build + track
   step);
 - `keyframe_step` (insertion, depth-seeded points, triangulation, fusion),
-  `local_ba_step`, `_reanchor_depth_seeds` and `keyframe_full_step`
-  (all of them plus probation culling and the keyframe-redundancy sweep);
+  `local_ba_step`, `_reanchor_depth_seeds`, `deferred_local_ba` (the last
+  two after the first, for a keyframe whose step skipped BA) and
+  `keyframe_full_step` (all of them plus probation culling and the
+  keyframe-redundancy sweep);
 - `frame_and_keyframe_step`, which builds the frame for any sensor
   (RGB-D, stereo or monocular), tracks it and runs the keyframe branch on
   the frames the policy picks.
@@ -31,6 +33,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from orbslam2_tpu_torch.geometry import camera as cam_geo
@@ -437,6 +440,29 @@ def _reanchor_depth_seeds(state: ms.MapState, kf_id: int, K: cam_geo.Intrinsics)
     ms.masked_put_(state.mp_pos, pidc, se3.apply(se3.inverse(state.kf_Tcw[kf_id]), pc), single)
 
 
+def deferred_local_ba(
+    state: ms.MapState,
+    kf_id: int,
+    inv_sigma2,
+    K: cam_geo.Intrinsics,
+    max_local: int = 32,
+    max_fixed: int = 64,
+    max_points: int = 8192,
+    obs_slots: int = 16,
+    iters1: int = 5,
+    iters2: int = 10,
+) -> None:
+    """Local BA around kf_id and the re-anchoring of its depth seeds, in
+    place: what a keyframe step run with `defer_ba` left out, issued when
+    the host resolves that keyframe (ORB-SLAM2's LocalMapping thread runs
+    its BA after tracking has moved on)."""
+    local_ba_step(
+        state, kf_id, inv_sigma2, K, max_local=max_local, max_fixed=max_fixed,
+        max_points=max_points, obs_slots=obs_slots, iters1=iters1, iters2=iters2,
+    )
+    _reanchor_depth_seeds(state, kf_id, K)
+
+
 def keyframe_full_step(
     state: ms.MapState,
     frame: FrameData,
@@ -504,11 +530,14 @@ def keyframe_full_step(
 
 class FrameStepOut(NamedTuple):
     """Results of one steady-state frame. The `next_*` fields are the
-    tracker anchors for the following frame. `is_kf`, `accept` and
-    `kf_id` are host values, read once in the frame step; the keyframe
-    outputs hold their no-keyframe defaults on other frames."""
+    tracker anchors for the following frame. `pose`, `ok`, `is_kf`,
+    `accept`, `n_inliers` and `kf_id` are host values, read at once in the
+    frame step; the keyframe outputs hold their no-keyframe defaults on
+    other frames."""
 
     track: TrackOut
+    pose: np.ndarray                   # [4, 4] float32: track.Tcw on the host
+    ok: bool                           # track.ok on the host
     is_kf: bool                        # the keyframe decision
     kf_id: int                         # -1 when no keyframe
     kf_Tcw: torch.Tensor               # [4, 4] post-BA keyframe pose (or the track pose)
@@ -571,6 +600,7 @@ def frame_and_keyframe_step(
     kf_ratio: float = 0.75,
     use_close_cond: bool = True,
     sensor: str = "rgbd",
+    defer_ba: bool = False,
     recycle_min_age: int = 24,
 ) -> tuple[FrameData, FrameStepOut]:
     """One steady-state frame: frame build, tracking, the keyframe policy
@@ -581,10 +611,12 @@ def frame_and_keyframe_step(
     ignored); tracking and the keyframe logic are shared.
 
     The reference's ``lax.cond`` on the decision becomes a Python ``if``
-    on one host read of (accept, inliers, decision), the scalars the host
-    needs for every frame anyway: the keyframe branch runs only on
-    keyframes. `probation_window` may be a host array; it reaches the card
-    only on a keyframe. With mapping disabled the decision is false."""
+    on one host read of (accept, inliers, decision, coarse health, pose),
+    what the host needs for every frame anyway: the keyframe branch runs
+    only on keyframes. `probation_window` may be a host array; it reaches
+    the card only on a keyframe. With mapping disabled the decision is
+    false. With `defer_ba` the keyframe branch skips local BA, which the
+    caller then runs through `deferred_local_ba`."""
     last = (last_xy, last_point_idx, last_octave, last_angle, last_desc, last_Tcw, velocity,
             has_velocity, ref_kf, K, p)
     sizes = dict(max_local_kfs=max_local_kfs, max_local_points=max_local_points,
@@ -617,10 +649,11 @@ def frame_and_keyframe_step(
         accept & (c2 | c1) & (out.n_inliers > 15)
         & torch.any(~state.kf_valid) & mapping_enabled
     )
-    accept, n_inl, is_kf = torch.stack(
-        [accept.to(torch.int64), out.n_inliers.to(torch.int64), need_kf.to(torch.int64)]
-    ).tolist()
-    is_kf = bool(is_kf)
+    # float64 holds the counts and the float32 pose exactly
+    flags = torch.stack([accept, out.n_inliers, need_kf, out.ok]).to(torch.float64)
+    host = torch.cat([flags, out.Tcw.reshape(-1).to(torch.float64)]).tolist()
+    accept, n_inl, is_kf, ok = bool(host[0]), int(host[1]), bool(host[2]), bool(host[3])
+    pose = np.asarray(host[4:], np.float32).reshape(4, 4)
 
     S = frame.xy.shape[0]
     if is_kf:
@@ -633,7 +666,7 @@ def frame_and_keyframe_step(
             create_close_points=create_close_points,
             max_local=max_local, max_fixed=max_fixed, max_points=max_points,
             obs_slots=obs_slots, iters1=iters1, iters2=iters2,
-            recycle_min_age=recycle_min_age,
+            run_ba=not defer_ba, recycle_min_age=recycle_min_age,
         )
     else:
         dev = frame.xy.device
@@ -645,6 +678,8 @@ def frame_and_keyframe_step(
         cull_red = torch.zeros(Kc, device=dev)
     res = FrameStepOut(
         track=out,
+        pose=pose,
+        ok=ok,
         is_kf=is_kf,
         kf_id=kf_id,
         kf_Tcw=kf_Tcw,
@@ -653,7 +688,7 @@ def frame_and_keyframe_step(
         window_keep=keep,
         cull_ids=cull_ids,
         cull_red=cull_red,
-        accept=bool(accept),
+        accept=accept,
         n_inliers=n_inl,
         next_Tcw=kf_Tcw,
         next_point_idx=kf_bind,

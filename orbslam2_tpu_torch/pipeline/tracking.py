@@ -758,9 +758,12 @@ class Tracker:
 
     def refresh_ref_pose(self):
         """Pull the reference keyframe's current pose to the host (poses
-        are logged relative to it; BA moves keyframes)."""
+        are logged relative to it; BA moves keyframes). A copy: on the CPU
+        `.numpy()` would share the map's storage, and a pipelined session
+        moves the keyframe in place before the frames dispatched earlier
+        are logged against this pose."""
         if self.ref_kf >= 0:
-            self._ref_pose_np = self.map.kf_Tcw[self.ref_kf].cpu().numpy()
+            self._ref_pose_np = self.map.kf_Tcw[self.ref_kf].cpu().numpy().copy()
 
     def remap_trajectory_ref(self, old_ref: int, new_ref: int, Tcp: np.ndarray):
         """Re-anchor logged frames from a culled keyframe to its spanning-

@@ -1,9 +1,11 @@
 """The port's session drivers on the CPU at a tiny size: each prints one
 JSON line that carries every key its JAX driver prints (`stress_longrun.py:125-146`,
 `stress_scale.py:147-168`, `bench.py:216-257` with `--all-sensors`, and
-with `--profile` its `stages` block), plus `pipeline_depth` 0. The sizes are cut here (a few frames, a small map, no
-loop-closer warm-ups, frames rendered in the test's process); the keys do
-not depend on them."""
+with `--profile` its `stages` block), plus `pipeline_depth`: 0 when asked
+for, and for `bench` and `longrun` by default 2, their JAX drivers' depth.
+The sizes are cut here (a few frames, a small map, no loop-closer
+warm-ups, frames rendered in the test's process); the keys do not depend
+on them."""
 
 import dataclasses
 import json
@@ -52,18 +54,18 @@ def _line(capsys) -> dict:
     return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
 
 
-def _longrun(monkeypatch, capsys):
+def _longrun(monkeypatch, capsys, *depth):
     full = longrun.longrun_config
     monkeypatch.setattr(longrun, "longrun_config", lambda: _tiny(full()))
     monkeypatch.setattr(longrun, "WARMUP", 1)
-    longrun.main(["--frames", "3", "--device", "cpu"])
+    longrun.main(["--frames", "3", "--device", "cpu", *depth])
     out = _line(capsys)
     assert LONGRUN_KEYS <= out.keys()
     assert out["frames"] == 3 and out["device"] == "cpu"
     return out
 
 
-def _scale(monkeypatch, capsys):
+def _scale(monkeypatch, capsys, *depth):
     monkeypatch.setattr(scale, "KEYFRAMES", 32)
     monkeypatch.setattr(scale, "POINTS", 1024)
     scale.main(["--device", "cpu"])
@@ -73,13 +75,13 @@ def _scale(monkeypatch, capsys):
     return out
 
 
-def _bench(monkeypatch, capsys):
+def _bench(monkeypatch, capsys, *depth):
     full = bench.base_config
     monkeypatch.setattr(bench, "base_config", lambda: _tiny(full()))
     for name, value in (("FORWARD", 3), ("ORBIT", 2), ("REVISIT", 1), ("WARMUP", 1),
                         ("SENSOR_FRAMES", 3)):
         monkeypatch.setattr(bench, name, value)
-    bench.main(["--all-sensors", "--device", "cpu"])
+    bench.main(["--all-sensors", "--device", "cpu", *depth])
     out = _line(capsys)
     extra = out["extra"]
     assert HEADLINE_KEYS <= out.keys() and BENCH_EXTRA_KEYS <= extra.keys()
@@ -89,7 +91,7 @@ def _bench(monkeypatch, capsys):
     return out
 
 
-def _bench_profile(monkeypatch, capsys):
+def _bench_profile(monkeypatch, capsys, *depth):
     """`--profile`: bench.py's `stages` block, and the host's waits over
     the traced frames of segment B, keyframe frames and others apart."""
     full = bench.base_config
@@ -97,7 +99,7 @@ def _bench_profile(monkeypatch, capsys):
     for name, value in (("PROFILE_FORWARD", 3), ("ORBIT", 2), ("REVISIT", 1), ("WARMUP", 1),
                         ("PROFILE_WINDOW", (1, 3))):
         monkeypatch.setattr(bench, name, value)
-    bench.main(["--profile", "--device", "cpu"])
+    bench.main(["--profile", "--device", "cpu", *depth])
     out = _line(capsys)
     extra = out["extra"]
     assert {"n", "first_ms", "steady_ms"} <= extra["stages"]["frame+track+kf"].keys()
@@ -107,8 +109,14 @@ def _bench_profile(monkeypatch, capsys):
     return out
 
 
-@pytest.mark.parametrize("driver", [_longrun, _scale, _bench, _bench_profile],
-                         ids=["longrun", "scale", "bench", "bench-profile"])
-def test_driver_line_has_reference_keys(driver, monkeypatch, capsys):
-    """The session's JSON line: its JAX counterpart's keys and `pipeline_depth` 0."""
-    assert driver(monkeypatch, capsys)["pipeline_depth"] == 0
+SYNC = ("--pipeline-depth", "0")
+
+
+@pytest.mark.parametrize("driver,args,depth", [
+    (_longrun, SYNC, 0), (_scale, (), 0), (_bench, SYNC, 0), (_bench_profile, SYNC, 0),
+    (_longrun, (), 2), (_bench, (), 2),
+], ids=["longrun", "scale", "bench", "bench-profile", "longrun-depth2", "bench-depth2"])
+def test_driver_line_has_reference_keys(driver, args, depth, monkeypatch, capsys):
+    """The session's JSON line: its JAX counterpart's keys and its
+    `pipeline_depth` (`scale` builds its map directly: 0)."""
+    assert driver(monkeypatch, capsys, *args)["pipeline_depth"] == depth

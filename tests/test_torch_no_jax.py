@@ -1,5 +1,7 @@
-"""The port runs without JAX, and its session refuses what it does not do."""
+"""The port runs without JAX, its session refuses what it cannot do, and
+the modes it once refused run."""
 
+import dataclasses
 import subprocess
 import sys
 from pathlib import Path
@@ -8,8 +10,12 @@ import pytest
 import torch
 
 from orbslam2_tpu_torch import kernels
-from orbslam2_tpu_torch.config import OrbConfig, SlamConfig, Sensor, TrackingConfig, VocabConfig
+from orbslam2_tpu_torch import synthetic
+from orbslam2_tpu_torch.config import (
+    CameraConfig, MapConfig, OrbConfig, SlamConfig, Sensor, TrackingConfig, VocabConfig,
+)
 from orbslam2_tpu_torch.pipeline.system import System
+from orbslam2_tpu_torch.pipeline.tracking import TrackState
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -144,22 +150,51 @@ def test_cuda_session_refuses_more_slots_than_the_pose_kernel_takes():
 
 
 @pytest.mark.parametrize("kwargs,cfg", [
-    # mapping and loop closing are ported; pipelining them is not
+    # the modes that raised while the pipelined session was not ported
     ({"enable_mapping": True, "enable_loop_closing": True},
      SlamConfig(tracking=TrackingConfig(pipeline_depth=2))),
     ({"enable_mapping": False, "enable_loop_closing": True},
      SlamConfig(vocab=VocabConfig(vocab_file=None), tracking=TrackingConfig(pipeline_depth=1))),
     ({"enable_mapping": False, "enable_loop_closing": False},
      SlamConfig(tracking=TrackingConfig(pipeline_depth=1))),
-    # stereo and mono sessions are ported; pipelining them is not
     ({"enable_mapping": True, "enable_loop_closing": False},
      SlamConfig(sensor=Sensor.STEREO, tracking=TrackingConfig(pipeline_depth=1))),
     ({"enable_mapping": True, "enable_loop_closing": False},
      SlamConfig(sensor=Sensor.MONOCULAR, tracking=TrackingConfig(pipeline_depth=1))),
 ], ids=["mapping", "loop_closing", "pipelined", "stereo", "mono_pipelined"])
 def test_unported_modes_raise(kwargs, cfg):
-    with pytest.raises(NotImplementedError):
-        System(cfg, device="cpu", **kwargs)
+    """These modes once raised `NotImplementedError`; now each session is
+    made on the CPU and tracks through the pipelined path: once
+    initialised, each frame waits in the FIFO until `pipeline_depth`
+    later ones are dispatched, and `flush` resolves the rest. At 320x240
+    with 600 features (the configurations' camera and sizes cut), every
+    frame from the initialization on is tracked."""
+    depth = cfg.tracking.pipeline_depth
+    cfg = dataclasses.replace(
+        cfg, camera=CameraConfig(fx=240.0, fy=240.0, cx=159.5, cy=119.5, bf=24.0,
+                                 width=320, height=240),
+        orb=OrbConfig(num_features=600, feature_slots=640, candidates_per_level=2048),
+        map=MapConfig(max_keyframes=16, max_points=4096, max_local_points=2048))
+    mono = cfg.sensor == Sensor.MONOCULAR
+    n = depth + 5 if mono else depth + 2
+    seq = synthetic.textured_sequence(n_frames=n, kind="lateral" if mono else "forward",
+                                      cam=cfg.camera)
+    slam = System(cfg, device="cpu", **kwargs)
+    in_flight = []
+    for i in range(n):
+        if cfg.sensor == Sensor.STEREO:
+            slam.track_stereo(*seq.stereo(i)[:2], timestamp=i / 30.0)
+        elif mono:
+            slam.track_monocular(seq.frame(i)[0], timestamp=i / 30.0)
+        else:
+            slam.track_rgbd(*seq.frame(i), timestamp=i / 30.0)
+        in_flight.append(len(slam._pending))
+    assert max(in_flight) == depth and in_flight[-1] == depth, in_flight
+    assert slam.get_tracking_state() == TrackState.OK
+    states = [r.state for r in slam.results]
+    assert not slam._pending and len(states) == n
+    init = states.index(TrackState.OK)
+    assert all(s == TrackState.OK for s in states[init:]), states
 
 
 @pytest.mark.parametrize("sensor", [Sensor.RGBD, Sensor.STEREO, Sensor.MONOCULAR])

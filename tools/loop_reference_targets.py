@@ -1,8 +1,9 @@
 """The reference package's own outcomes for the loop-closing and
 relocalization sessions that `chip_smoke.py` drives on the port: run on the
-CPU, in one process with one JAX device and `pipeline_depth=0`.
+CPU, in one process with one JAX device, at `pipeline_depth=0` unless
+`--depth N` asks for another.
 
-    JAX_PLATFORMS=cpu python tools/loop_reference_targets.py [SESSION ...]
+    JAX_PLATFORMS=cpu python tools/loop_reference_targets.py [--depth N] [SESSION ...]
 
 SESSION is any of `orbit640` (bench.py's segment B: the 170-frame orbit
 plus a 35-frame revisit at 640x480 / 1000 features, `th_depth` 130),
@@ -12,10 +13,16 @@ bench.py's configuration, 3 black frames, then frame 10 again) and
 `reloc_small` (the same at `tests/test_e2e_rgbd.py::small_cfg`),
 `orbit320_pcg` (`orbit320` with `pose_graph_dense_max_k` 64, below its 96
 keyframe slots, so each correction takes the PCG essential-graph solve) and
-`longrun N` (`stress_longrun.py`'s configuration at `pipeline_depth=0`
+`longrun N` (`stress_longrun.py`'s configuration
 over the first N frames of its repeated 620-frame orbit; N defaults to
 800, one revolution and 180 frames of the second); the first four by
-default. Prints one JSON line per session: loops closed, frames lost,
+default; `dolly640` is bench.py's segment A (the 72-frame forward dolly at
+its configuration, loop closing on), and `gap320` 60 frames of the dolly
+at `tests/test_torch_mapping_slice.py`'s 320x240 configuration with frame
+54 black (after 6 keyframes, so no auto-reset; at depth 2 the next frame's
+dispatch inserts a keyframe before frame 54 is resolved LOST, which the
+resolve then folds in as orphaned), with its per-frame states and poses
+and its keyframe and relocalization events. Prints one JSON line per session: loops closed, frames lost,
 ATE over the tracked frames (bench.py's definition), over all frames and
 over the orbit's frames alone, the frame of each loop correction, the
 keyframes' frames and the rejected Sim3 verifications, and for the
@@ -65,6 +72,16 @@ ORBIT320 = SlamConfig(
     orb=OrbConfig(num_features=400, feature_slots=512, candidates_per_level=1024),
     map=MapConfig(max_keyframes=96, max_points=16384, max_local_points=4096),
     tracking=TrackingConfig(th_depth=130.0),
+)
+# tests/test_torch_mapping_slice.py's CFG
+MAPPING320 = SlamConfig(
+    sensor=Sensor.RGBD,
+    camera=CameraConfig(fx=240.0, fy=240.0, cx=159.5, cy=119.5, bf=24.0, width=320, height=240),
+    orb=OrbConfig(num_features=300, feature_slots=320, candidates_per_level=2048),
+    map=MapConfig(max_keyframes=32, max_points=8192, max_local_points=2048),
+    tracking=TrackingConfig(th_depth=40.0),
+    solver=SolverConfig(ba_max_points=2048, local_ba_iters_first=3, local_ba_iters_second=4,
+                        ba_max_local_kfs=16, ba_max_fixed_kfs=16),
 )
 SMALL = SlamConfig(
     sensor=Sensor.RGBD,
@@ -137,6 +154,38 @@ def orbit(cfg, n_orbit=170, n_revisit=35):
     )
 
 
+def dolly(cfg, n_frames=72):
+    """The forward dolly through `track_rgbd`, loop closing on."""
+    seq = synthetic.textured_sequence(n_frames=n_frames, kind="forward", cam=cfg.camera)
+    slam = System(cfg)
+    for i in range(n_frames):
+        img, depth = seq.frame(i)
+        slam.track_rgbd(img, depth, timestamp=i / 30.0)
+    _, poses, tracked = slam.frame_poses()
+    return dict(frames=n_frames, lost=int((~tracked).sum()),
+                ate=float(ate_rmse(poses, seq.poses, align=True)),
+                keyframes=slam.num_keyframes(), points=slam.num_points(),
+                keyframe_frames=[i for i, r in enumerate(slam.results) if r.is_keyframe],
+                loops_closed=slam.loop_closer.loops_closed if slam.loop_closer else 0)
+
+
+def gap(cfg, n_frames=60, black_at=54):
+    """The forward dolly with frame `black_at` black."""
+    seq = synthetic.textured_sequence(n_frames=n_frames, kind="forward", cam=cfg.camera)
+    black = np.zeros((cfg.camera.height, cfg.camera.width), np.float32)
+    slam = System(cfg)
+    for i in range(n_frames):
+        img, depth = (black, black) if i == black_at else seq.frame(i)
+        slam.track_rgbd(img, depth, timestamp=i / 30.0)
+    _, poses, tracked = slam.frame_poses()
+    return dict(frames=n_frames, black_at=black_at, states=[r.state.name for r in slam.results],
+                keyframe_events=[[e["kf_id"], e["frame_id"], bool(e.get("orphaned"))]
+                                 for e in slam.log.of("keyframe")],
+                relocalized=[e["frame_id"] for e in slam.log.of("relocalized")],
+                resets=len(slam.log.of("reset")), tracked=tracked.tolist(),
+                poses=poses.tolist())
+
+
 def reloc(cfg, n_map=34, n_black=3, revisit=10, tries=3):
     seq = synthetic.textured_sequence(n_frames=n_map, kind="forward", cam=cfg.camera)
     slam = System(cfg)
@@ -160,32 +209,46 @@ def reloc(cfg, n_map=34, n_black=3, revisit=10, tries=3):
     err = float(np.linalg.norm((T @ np.linalg.inv(seq.poses[revisit]))[:3, 3]))
     return dict(ok_before=ok_before, keyframes=n_kf, lost_after_blackout=lost,
                 relocalized_at_try=reloc_try, t_err=err,
-                n_inliers=int(slam.results[-1].num_inliers))
+                n_inliers=int(slam.results[-1].num_inliers),
+                states=[r.state.name for r in slam.results],
+                orphaned=[e["kf_id"] for e in slam.log.of("keyframe") if e.get("orphaned")])
 
 
+def at_depth(cfg, depth: int, **tracking):
+    """`cfg` at `pipeline_depth` `depth`, with other tracking fields replaced."""
+    return dataclasses.replace(
+        cfg, tracking=dataclasses.replace(cfg.tracking, pipeline_depth=depth, **tracking))
+
+
+# each takes the pipeline depth, then the session's own arguments
 SESSIONS = {
-    "orbit640": lambda: orbit(dataclasses.replace(
-        BENCH, tracking=dataclasses.replace(BENCH.tracking, th_depth=130.0))),
-    "orbit320": lambda: orbit(ORBIT320),
-    "reloc640": lambda: reloc(BENCH),
-    "reloc_small": lambda: reloc(SMALL),
-    "orbit320_pcg": lambda: orbit(ORBIT320_PCG),
-    "longrun": lambda n=800: orbit(LONGRUN, LONGRUN_REV, int(n) - LONGRUN_REV),
+    "orbit640": lambda d: orbit(at_depth(BENCH, d, th_depth=130.0)),
+    "orbit320": lambda d: orbit(at_depth(ORBIT320, d)),
+    "reloc640": lambda d: reloc(at_depth(BENCH, d)),
+    "reloc_small": lambda d: reloc(at_depth(SMALL, d)),
+    "dolly640": lambda d: dolly(at_depth(BENCH, d)),
+    "gap320": lambda d: gap(at_depth(MAPPING320, d)),
+    "orbit320_pcg": lambda d: orbit(at_depth(ORBIT320_PCG, d)),
+    "longrun": lambda d, n=800: orbit(at_depth(LONGRUN, d), LONGRUN_REV, int(n) - LONGRUN_REV),
 }
 DEFAULT = ("orbit640", "orbit320", "reloc640", "reloc_small")
 
 
 def main():
-    args = sys.argv[1:] or list(DEFAULT)
+    args = sys.argv[1:]
+    depth = 0
+    if args[:1] == ["--depth"]:
+        depth, args = int(args[1]), args[2:]
+    args = args or list(DEFAULT)
     i = 0
     while i < len(args):
         name = args[i]
         # `longrun` takes its frame count as the next argument, when one is given
         extra = [args[i + 1]] if i + 1 < len(args) and args[i + 1].isdigit() else []
         i += 1 + len(extra)
-        out = SESSIONS[name](*extra)
-        print(json.dumps({"session": " ".join([name, *extra]), "devices": len(jax.devices()),
-                          **out}), flush=True)
+        out = SESSIONS[name](depth, *extra)
+        print(json.dumps({"session": " ".join([name, *extra]), "pipeline_depth": depth,
+                          "devices": len(jax.devices()), **out}), flush=True)
 
 
 if __name__ == "__main__":
