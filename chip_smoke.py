@@ -142,7 +142,21 @@ Phases, each printing its own lines; any failed check exits non-zero:
    frame 54 black): the keyframe that frame 55's dispatch inserted folded
    in as orphaned, the reference's keyframe records and relocalizing frame
    (`tools/loop_reference_targets.py --depth 2 gap320`), every other frame
-   tracked.
+   tracked;
+23. the unfused path, which no `System` entry point drives
+   (`run_unfused_session`: `Tracker.process_rgbd_fast` a frame, and on
+   each keyframe request the insertion, the depth seeds,
+   `LocalMapper.process_keyframe` and `post_keyframe`): (a) the 72 frames
+   of phase 7 at bench.py's configuration, (b) 24 of them as stereo pairs
+   through `process_stereo_fast`, each held to the reference's own run of
+   the same calls (`tools/loop_reference_targets.py unfused640
+   unfused_stereo640`): every frame the reference tracks tracked, ATE
+   < 0.01 m and within 5e-3 m of the reference's, its keyframes, its point
+   count within 5 %, K1 launched in every triangulation pair and every fuse
+   call, K2 at least 3 times a tracked frame; its seconds and ms per
+   keyframe frame printed; (c) phase 8's 320x240 session through the
+   unfused path on the card and on the CPU: frames 0, 6 and 17
+   keyframes, poses within 5 mm and 0.2 degrees.
 
 How a kernel is timed, at each shape: `ms` is its device time, 50
 launches into preallocated outputs captured in one CUDA graph and the
@@ -155,7 +169,7 @@ never calls; `bound_ms` the larger of its bytes over 3.35 TB/s and its
 operations over the peak rate of their type.
 
 The launch counts are set to 0 just before each path is driven and read
-just after; the kernels line sums the twelve paths and gives each path's
+just after; the kernels line sums the fourteen paths and gives each path's
 counts. The last two lines are that JSON object of the kernels' launch
 counts, errors and times, and the JSON result line. Exits non-zero,
 printing no result, when no CUDA device is available.
@@ -276,6 +290,19 @@ GAP_REFERENCE = dict(
     keyframe_events=[[0, 0, False], [1, 6, False], [2, 17, False], [3, 29, False],
                      [4, 40, False], [5, 50, False], [6, 55, True]],
     relocalized=[57])
+# phase 23: the unfused path (Tracker.process_rgbd_fast / process_stereo_fast,
+# LocalMapper.process_keyframe / post_keyframe); the reference's own runs
+# of `run_unfused` (tools/loop_reference_targets.py unfused640
+# unfused_stereo640, CPU, one device). The port on the CPU makes the same
+# 15 RGB-D keyframes (2887 points against 2888, ATE 0.002378 m)
+UNFUSED640_REFERENCE = dict(
+    tracked=72, ate=0.002361762929748233, points=2888,
+    keyframe_frames=[0, 4, 10, 17, 22, 26, 31, 35, 40, 44, 48, 52, 57, 62, 67])
+UNFUSED_STEREO_FRAMES = 24
+UNFUSED_STEREO640_REFERENCE = dict(tracked=24, ate=0.002528923353112123, points=1366,
+                                   keyframe_frames=[0, 1, 3, 6, 9, 12, 15, 18, 21, 23])
+UNFUSED_POINTS_SHARE = 0.05   # points within 5 % of the reference's
+UNFUSED_ATE_GAP_M = 5e-4      # ATE within 0.5 mm of the reference's
 # phase 21: stress_scale.py's map (orbslam2_tpu_torch.scale)
 SCALE_SHAPE = (1024, 98304)
 # phase 21: the 320x240 orbit's first 28 frames through a 7-slot pool, as
@@ -667,6 +694,52 @@ def run_session(cfg, n_frames: int, device, mapping: bool = False, loop_closing:
     if device.type == "cuda":
         torch.cuda.synchronize()
     return slam, seq, secs
+
+
+def run_unfused_session(cfg, a, b, device, secs=None):
+    """The unfused path, which no entry point of `System` drives: RGB-D
+    (or stereo, by `cfg.sensor`) initialization through `Tracker.process`,
+    then every frame through `process_rgbd_fast` (`process_stereo_fast`);
+    on each keyframe request the keyframe's insertion, its close-point
+    depth seeds, `LocalMapper.process_keyframe(run_ba=False)`,
+    `post_keyframe` (local BA and the cold `after_keyframe`), the culled
+    keyframes' re-anchoring and `Tracker.on_new_keyframe`: the calls of
+    `tools/loop_reference_targets.py`'s `run_unfused`, in its order. `a`
+    and `b` are the staged images and depths (left and right images);
+    `secs`, when given, gets each frame's seconds. Returns the `System`
+    whose tracker, mapper and map the session used (loop closing off)."""
+    from orbslam2_tpu_torch import config as c
+    from orbslam2_tpu_torch.pipeline.system import System
+    from orbslam2_tpu_torch.pipeline.tracking import TrackState
+    from orbslam2_tpu_torch.slam_map import map_state as ms
+
+    slam = System(cfg, device=device, enable_mapping=True, enable_loop_closing=False)
+    t, mapper = slam.tracker, slam.local_mapper
+    stereo = cfg.sensor == c.Sensor.STEREO
+    fast = t.process_stereo_fast if stereo else t.process_rgbd_fast
+    build = slam.builder.stereo if stereo else slam.builder.rgbd
+    for i in range(len(a)):
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ts = i / 30.0
+        res = fast(a[i], b[i], ts) if t.state == TrackState.OK else t.process(build(a[i], b[i], ts))
+        if t.kf_request is not None:
+            frame, Tcw, bind = t.kf_request
+            t.kf_request = None
+            kf = ms.add_keyframe(t.map, frame.frame_id, Tcw, frame.xy, frame.ur, frame.depth,
+                                 frame.octave, frame.angle, frame.desc, frame.valid, bind)
+            seeds = t._create_depth_points(t.map, kf, frame, Tcw, bind)
+            mapper.process_keyframe(t.map, kf, run_ba=False)
+            mapper.post_keyframe(t.map, kf, seeds)
+            slam._drain_culls()
+            t.on_new_keyframe(kf)
+        slam.results.append(res)
+        if secs is not None:
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+    return slam
 
 
 def check_main_path(device) -> dict:
@@ -2109,6 +2182,79 @@ def check_pipelined_path(device, mapping: dict) -> tuple[dict, dict]:
     return pipelined, reloc
 
 
+def check_unfused_session(device, cfg, n_frames: int, ref: dict, label: str) -> dict:
+    """One session of the unfused path on `n_frames` of the dolly: every
+    frame the reference tracks tracked, ATE < 0.01 m and within 5e-4 m of
+    the reference's, the reference's keyframes (the port on the CPU makes
+    the same), points within 5 %, K1
+    launched in every triangulation pair and every fuse call, K2 at least
+    3 times a tracked frame."""
+    from orbslam2_tpu_torch import evaluation, kernels
+    from orbslam2_tpu_torch.pipeline import local_mapping as lm
+
+    spec = (n_frames, "forward", cfg.camera, 0)
+    seq = drive.sequence(spec)
+    a, b = staged(render(spec, range(n_frames), stereo=cfg.sensor.name == "STEREO"), device)
+    pairs, fuses = K1Probe(lm, "triangulate_pair"), K1Probe(lm, "fuse_points_into_kf")
+    secs = []
+    try:
+        kernels.launch_counts.update(hamming=0, pose_gn=0)
+        slam = run_unfused_session(cfg, a, b, device, secs)
+        launches = dict(kernels.launch_counts)
+    finally:
+        pairs.close()
+        fuses.close()
+    _, poses, tracked = slam.frame_poses()
+    if poses.shape != (n_frames, 4, 4) or not np.isfinite(poses).all():
+        fail(f"{label}: poses of shape {poses.shape}, finite {np.isfinite(poses).all()}")
+    ate = evaluation.ate_rmse(poses[tracked], seq.poses[tracked], align=True)
+    kf_frames = drive.keyframe_frames(slam)
+    print(f"{label}: {int(tracked.sum())}/{n_frames} frames tracked, ATE {ate:.6f} m, "
+          f"{slam.num_points()} points, keyframes at frames {kf_frames}, {slam.num_keyframes()} "
+          f"live, {slam.local_mapper.n_keyframes} through post_keyframe; the reference: {ref}",
+          flush=True)
+    print(f"{label}: K1 launches in each of {len(pairs.per_call)} triangulation pairs "
+          f"{sorted(set(pairs.per_call))}, in each of {len(fuses.per_call)} fuse calls "
+          f"{sorted(set(fuses.per_call))}; launches {launches}", flush=True)
+    fps = print_rates(label, secs, kf_frames)
+    kf_ms = [1000 * secs[i] for i in kf_frames[1:]]
+    print(f"{label}: {sum(secs):.2f} s, {np.median(kf_ms):.2f} ms per keyframe frame at the median "
+          f"({len(kf_ms)}), {drive.card_line()}", flush=True)
+    near = ate < MAP_ATE_LIMIT_M and abs(ate - ref["ate"]) < UNFUSED_ATE_GAP_M
+    if int(tracked.sum()) < ref["tracked"] or not near:
+        fail(f"{label}: tracked {int(tracked.sum())}, ATE {ate}")
+    if kf_frames != ref["keyframe_frames"]:
+        fail(f"{label}: keyframes {kf_frames} against the reference's {ref['keyframe_frames']}")
+    if abs(slam.num_points() - ref["points"]) > UNFUSED_POINTS_SHARE * ref["points"]:
+        fail(f"{label}: {slam.num_points()} points against the reference's {ref['points']}")
+    if not pairs.per_call or min(pairs.per_call) < 1 or not fuses.per_call or min(fuses.per_call) < 1:
+        fail(f"{label}: K1 per triangulation pair {pairs.per_call}, per fuse {fuses.per_call}")
+    if launches["pose_gn"] < 3 * (int(tracked.sum()) - 1):
+        fail(f"{label} launched pose_gn {launches['pose_gn']} times, fewer than 3 per frame")
+    return {"launches": launches, "ate_m": ate, "fps": fps, "frames": n_frames,
+            "k1_per_pair": sorted(set(pairs.per_call)), "k1_per_fuse": sorted(set(fuses.per_call))}
+
+
+def check_unfused_cpu_agreement(device) -> None:
+    """Phase 8's 320x240 session through the unfused path on the card and
+    on the CPU: the same keyframes, poses within 5 mm and 0.2 degrees."""
+    cfg = small_config()
+    spec = (SMALL_MAP_FRAMES, "forward", cfg.camera, 0)
+    frames = render(spec, range(SMALL_MAP_FRAMES))
+    gpu = run_unfused_session(cfg, *staged(frames, device), device)
+    cpu = run_unfused_session(cfg, *staged(frames, torch.device("cpu")), torch.device("cpu"))
+    _, pg, tg = gpu.frame_poses()
+    _, pc, tc = cpu.frame_poses()
+    kg, kc = drive.keyframe_frames(gpu), drive.keyframe_frames(cpu)
+    dt, deg = pose_gaps(pg, pc)
+    print(f"small unfused session, card vs CPU: keyframes {kg} / {kc}, points {gpu.num_points()} "
+          f"/ {cpu.num_points()}, tracked {int(tg.sum())}/{int(tc.sum())} of {SMALL_MAP_FRAMES}, "
+          f"max dt {dt.max():.3e}, max rot {deg.max():.3e} deg", flush=True)
+    if not (kg == kc == SMALL_MAP_KFS and tg.all() and tc.all() and dt.max() < SMALL_DT_M
+            and deg.max() < SMALL_DEG):
+        fail("the card and the CPU disagree on the small unfused session")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -2179,14 +2325,23 @@ def run_phases(device, card: str) -> None:
     t0 = time.perf_counter()
     pipelined, pipelined_reloc = check_pipelined_path(device, mapping)
     print(f"pipelined phases: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    unfused = check_unfused_session(device, bench_config(), MAP_FRAMES, UNFUSED640_REFERENCE,
+                                    "unfused path")
+    unfused_stereo = check_unfused_session(device, stereo_config(bench_config()),
+                                           UNFUSED_STEREO_FRAMES, UNFUSED_STEREO640_REFERENCE,
+                                           "unfused stereo path")
+    check_unfused_cpu_agreement(device)
+    print(f"unfused phases: {time.perf_counter() - t0:.1f} s", flush=True)
 
     if "jax" in sys.modules:
         fail("jax was imported")
     paths = (main_path, mapping, stereo_path, mono_path, reloc, orbit640, orbit320, localization,
-             graft, orbit_pcg, pipelined, pipelined_reloc)
+             graft, orbit_pcg, pipelined, pipelined_reloc, unfused, unfused_stereo)
     names = ("rgbd_tracking", "rgbd_mapping", "stereo_mapping", "mono_mapping",
              "rgbd_relocalization", "rgbd_orbit_640", "rgbd_orbit_320", "rgbd_localization",
-             "graft_entry", "rgbd_orbit_320_pcg", "rgbd_pipelined", "rgbd_pipelined_relocalization")
+             "graft_entry", "rgbd_orbit_320_pcg", "rgbd_pipelined", "rgbd_pipelined_relocalization",
+             "rgbd_unfused", "stereo_unfused")
     for k, key in ((k1, "hamming"), (k2, "pose_gn")):
         k["launches"] = sum(p["launches"][key] for p in paths)
         k["launches_per_path"] = {name: {"launches": p["launches"][key], "frames": p["frames"]}
@@ -2195,6 +2350,9 @@ def run_phases(device, card: str) -> None:
     per["rgbd_mapping"]["per_keyframe_step"] = mapping["k1_per_keyframe_step"]
     per["stereo_mapping"]["per_stereo_match"] = stereo_path["k1_per_stereo_match"]
     per["mono_mapping"]["per_init_search"] = mono_path["k1_per_init_search"]
+    for name, p in (("rgbd_unfused", unfused), ("stereo_unfused", unfused_stereo)):
+        per[name]["per_triangulation_pair"] = p["k1_per_pair"]
+        per[name]["per_fuse_call"] = p["k1_per_fuse"]
     for name, p in (("rgbd_orbit_640", orbit640), ("rgbd_orbit_320", orbit320),
                     ("rgbd_orbit_320_pcg", orbit_pcg)):
         per[name]["per_verification"] = p["k1_per_verification"]

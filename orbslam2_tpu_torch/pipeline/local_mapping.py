@@ -1,9 +1,11 @@
 """Local mapping: new-point triangulation, point culling, duplicate fusion,
 local bundle adjustment and keyframe culling.
 
-Port of `orbslam2_tpu.pipeline.local_mapping` for the RGB-D keyframe path
-(ORB-SLAM2 LocalMapping: MapPointCulling, CreateNewMapPoints,
-SearchInNeighbors, LocalBundleAdjustment, KeyFrameCulling). Every function
+Port of `orbslam2_tpu.pipeline.local_mapping` (ORB-SLAM2 LocalMapping:
+MapPointCulling, CreateNewMapPoints, SearchInNeighbors,
+LocalBundleAdjustment, KeyFrameCulling): the stages the fused keyframe
+step calls, and the unfused iteration (`LocalMapper.process_keyframe`,
+`post_keyframe`) that runs them one host-driven call at a time. Every function
 updates the `MapState` it is given in place, where the reference returns a
 new pytree and donates the old one.
 
@@ -27,6 +29,11 @@ from orbslam2_tpu_torch.pipeline.tracking import _i64, _top_k
 from orbslam2_tpu_torch.slam_map import map_state as ms
 from orbslam2_tpu_torch.slam_map.map_state import kf_index, masked_put_
 from orbslam2_tpu_torch.solvers import ba
+
+
+def _numpy(x) -> np.ndarray:
+    """A host array of a tensor (on any device) or an array-like."""
+    return x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
 
 
 def _row(arr: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -261,6 +268,38 @@ def triangulate_pair(
 
     ok = usable & z_ok & chi_ok & scale_ok & (baseline > 0.01)
     return f2, pw, ok, dist1
+
+
+def create_new_points(cfg: SlamConfig, state: ms.MapState, kf_id: int, K, scale_factors,
+                      level_sigma2, neighbor_ids) -> torch.Tensor:
+    """Triangulate kf_id against each covisible neighbour in turn and insert
+    the new points, in place (ORB-SLAM2 CreateNewMapPoints; the unfused
+    path). A host loop over the neighbours: each pair reads back whether
+    anything triangulated, as the reference does, and features an earlier
+    neighbour already bound are left out. Returns the new point ids."""
+    nl = cfg.orb.num_levels
+    S = state.kf_point_idx.shape[1]
+    cols = torch.arange(S, dtype=torch.int32, device=state.kf_Tcw.device)
+    created = []
+    for nkf in neighbor_ids:
+        f2, pw, ok, dist1 = triangulate_pair(state, kf_id, int(nkf), K, scale_factors,
+                                             level_sigma2, cfg.camera.baseline, num_levels=nl)
+        if not bool(torch.any(ok)):
+            continue
+        ok = ok & (state.kf_point_idx[kf_id] < 0)
+        max_d = dist1 * scale_factors[_i64(torch.clamp(state.kf_octave[kf_id], 0, nl - 1))]
+        min_d = max_d / float(cfg.orb.scale_factor ** (nl - 1))
+        rays = pw - se3.camera_center(state.kf_Tcw[kf_id])
+        normal = rays / torch.clamp(torch.linalg.norm(rays, dim=-1, keepdim=True), min=1e-9)
+        pids = ms.add_points(state, pw, ok, kf_id, cols, state.kf_desc[kf_id].clone(), normal,
+                             min_d, max_d, state.kf_ur[kf_id].clone())
+        # the second view
+        bind_points_to_kf(state, int(nkf), f2, pids, pids >= 0)
+        created.append(pids)
+    if not created:
+        return torch.zeros(0, dtype=torch.int32, device=cols.device)
+    allp = torch.cat(created)
+    return allp[allp >= 0]
 
 
 # ---------------------------------------------------------------------------
@@ -616,8 +655,9 @@ def remove_keyframe(state: ms.MapState, kf_id: int) -> None:
 
 
 class LocalMapper:
-    """Host bookkeeping around the fused keyframe step: the probation
-    window of recent points and keyframe culling."""
+    """Host bookkeeping around the fused keyframe step (the probation
+    window of recent points, keyframe culling), and the unfused mapping
+    iteration."""
 
     RECENT_WINDOW = 4096  # fixed-size probation window
 
@@ -633,6 +673,7 @@ class LocalMapper:
                                          device=device)
         self.inv_sigma2 = 1.0 / self.level_sigma2
         self.recent_points = np.zeros((0,), np.int32)
+        self._window_n = 0
         self.n_keyframes = 0
         # host mirror of the live keyframe count (slots recycle)
         self.live_kfs = 0
@@ -649,37 +690,124 @@ class LocalMapper:
         n = min(len(self.recent_points), W)
         if n:
             window[:n] = self.recent_points[-n:]
+        # what `after_keyframe` aligns `keep` with when no window_ids come
+        self._window_n = n
         return window
 
     def after_keyframe(self, state: ms.MapState, kf_id: int, new_pids, keep,
-                       cull_ids, cull_red, window_ids) -> None:
-        """Host bookkeeping after the fused keyframe step: update the
-        probation window and cull redundant keyframes, in place.
+                       cull_ids=None, cull_red=None, window_ids=None) -> None:
+        """Host bookkeeping after a keyframe step: update the probation
+        window and cull redundant keyframes, in place.
 
-        `keep` was computed against the window snapshot `window_ids`; the
-        culled ids leave the window as a set difference. The fused step
-        returns the redundancy of the keyframe's covisible neighbours
-        (`cull_ids` / `cull_red`); a neighbour above 90 % is culled from the
-        12th keyframe on. When the slot pool runs dry the most redundant
-        keyframe is recycled regardless of the bar. (The reference's cold
-        path without `cull_ids` is not ported.)"""
+        With `window_ids`, the snapshot `keep` was computed against, the
+        culled ids leave the window as a set difference; without, `keep`
+        is aligned with the last `probation_window()`. With `cull_ids` /
+        `cull_red`, the fused step's redundancy of the keyframe's covisible
+        neighbours, a neighbour above 90 % is culled from the 12th keyframe
+        on; without, every 4th keyframe from the 12th on checks the top 3
+        covisible keyframes one at a time and culls the first above 90 %.
+        When the slot pool runs dry the most redundant keyframe is recycled
+        regardless of the bar."""
         self.n_keyframes += 1
         self.live_kfs += 1
         W = self.RECENT_WINDOW
-        wids = np.asarray(window_ids)
-        removed = wids[(wids >= 0) & ~np.asarray(keep)[: len(wids)]]
-        if len(removed):
-            self.recent_points = self.recent_points[~np.isin(self.recent_points, removed)]
-        fresh = np.asarray(new_pids)
+        keep = _numpy(keep)
+        if window_ids is not None:
+            wids = np.asarray(window_ids)
+            removed = wids[(wids >= 0) & ~keep[: len(wids)]]
+            if len(removed):
+                self.recent_points = self.recent_points[~np.isin(self.recent_points, removed)]
+        elif self._window_n:
+            n = self._window_n
+            self.recent_points = self.recent_points[-n:][keep[:n]]
+        fresh = _numpy(new_pids)
         fresh = fresh[fresh >= 0].astype(np.int32)
         if len(fresh):
             self.recent_points = np.concatenate([self.recent_points, fresh])[-W:]
 
-        if self.n_keyframes >= 12:
-            for c, r in zip(np.asarray(cull_ids), np.asarray(cull_red)):
-                if c >= 0 and c != kf_id and r > 0.9:
-                    self._cull(state, int(c))
+        if cull_ids is not None:
+            if self.n_keyframes >= 12:
+                for c, r in zip(_numpy(cull_ids), _numpy(cull_red)):
+                    if c >= 0 and c != kf_id and r > 0.9:
+                        self._cull(state, int(c))
+        elif self.n_keyframes % 4 == 0 and self.n_keyframes >= 12:
+            covis = state.covis[kf_id].cpu().numpy()
+            for c in np.argsort(-covis)[:3]:
+                c = int(c)
+                if c == 0 or c == kf_id or covis[c] < self.cfg.map.covis_threshold:
+                    continue
+                if float(keyframe_redundancy(state, c)) > 0.9:
+                    self._cull(state, c)
+                    break
         self._pressure_cull(state, kf_id)
+
+    def post_keyframe(self, state: ms.MapState, kf_id: int, new_pids) -> None:
+        """The unfused path's tail after a keyframe, in place: probation
+        culling over the window, local BA from the third keyframe on, then
+        `after_keyframe` on its window and culling branches."""
+        from orbslam2_tpu_torch.pipeline import fused
+
+        window = torch.as_tensor(self.probation_window(), device=state.kf_Tcw.device)
+        keep = cull_points(state, window, state.kf_seq[kf_id].clone())
+        if int(state.num_kf) >= 3:
+            sc = self.cfg.solver
+            fused.local_ba_step(
+                state, kf_id, self.inv_sigma2, self.K,
+                max_local=sc.ba_max_local_kfs, max_fixed=sc.ba_max_fixed_kfs,
+                max_points=sc.ba_max_points, obs_slots=int(state.obs_slots),
+                iters1=sc.local_ba_iters_first, iters2=sc.local_ba_iters_second,
+            )
+        self.after_keyframe(state, kf_id, new_pids, keep)
+
+    def process_keyframe(self, state: ms.MapState, kf_id: int, run_ba: bool = True) -> None:
+        """One LocalMapping iteration for an inserted keyframe, in place
+        (ORB-SLAM2 LocalMapping::Run, unfused): refresh the statistics of
+        its points, cull over the whole recent-point list, triangulate
+        against the top covisible neighbours (10, or 20 for mono), refresh
+        the new points, fuse both ways with the first 5 neighbours, then
+        local BA. The neighbours are ordered by numpy's `argsort` of the
+        host covisibility row, as the reference orders them, so ties
+        break alike. Only valid entries of an id list are refreshed, so
+        point 0 is refreshed where the reference's -1 fillers leave it
+        stale (`map_state.recompute_point_stats`)."""
+        cfg = self.cfg
+        dev = state.kf_Tcw.device
+        nl = cfg.orb.num_levels
+        ms.recompute_point_stats(state, state.kf_point_idx[kf_id].clone(), self.scale_factors)
+
+        if len(self.recent_points):
+            keep = cull_points(state, torch.as_tensor(self.recent_points, device=dev),
+                               state.kf_seq[kf_id].clone())
+            self.recent_points = self.recent_points[keep.cpu().numpy()]
+
+        n_neigh = 20 if cfg.sensor.name == "MONOCULAR" else 10
+        covis = torch.where(state.kf_valid, state.covis[kf_id], 0).cpu().numpy()
+        neighbors = [int(k) for k in np.argsort(-covis)[:n_neigh]
+                     if covis[k] >= cfg.map.covis_threshold]
+        new_pids = create_new_points(cfg, state, kf_id, self.K, self.scale_factors,
+                                     self.level_sigma2, neighbors)
+        if new_pids.shape[0]:
+            self.recent_points = np.concatenate([self.recent_points, new_pids.cpu().numpy()])
+            ms.recompute_point_stats(state, new_pids, self.scale_factors)
+
+        mine = state.kf_point_idx[kf_id].clone()
+        for nkf in neighbors[:5]:
+            fuse_points_into_kf(state, mine, mine >= 0, nkf, self.K, self.scale_factors,
+                                self.bounds, num_levels=nl)
+            theirs = state.kf_point_idx[nkf].clone()
+            fuse_points_into_kf(state, theirs, theirs >= 0, kf_id, self.K, self.scale_factors,
+                                self.bounds, num_levels=nl)
+
+        if run_ba and int(state.num_kf) >= 3:
+            sc = cfg.solver
+            prob, cam_ids, cam_present, pts, pt_ok = build_local_ba_problem(
+                state, kf_id, self.inv_sigma2, max_local=sc.ba_max_local_kfs,
+                max_fixed=sc.ba_max_fixed_kfs, max_points=sc.ba_max_points,
+                obs_slots=int(state.obs_slots),
+            )
+            res = ba.two_phase_bundle_adjust(prob, self.K, iters1=sc.local_ba_iters_first,
+                                             iters2=sc.local_ba_iters_second)
+            writeback_local_ba(state, res, prob, cam_ids, cam_present, pts, pt_ok)
 
     def _pressure_cull(self, state: ms.MapState, kf_id: int) -> None:
         """Recycle the most redundant keyframes while fewer than 3 slots

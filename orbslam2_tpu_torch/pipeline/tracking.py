@@ -670,44 +670,8 @@ class Tracker:
 
         from orbslam2_tpu_torch.pipeline import fused
 
-        self._ensure_params()
-        velocity = self.velocity if self.velocity is not None else torch.eye(4, device=self.device)
-        out = fused.track_step(
-            self.map, frame,
-            self.last_frame.xy, self.last_point_idx,
-            self.last_frame.octave, self.last_frame.angle, self.last_frame.desc,
-            self.last_Tcw, velocity, self.velocity is not None,
-            self.ref_kf, self.K, self._params,
-            max_local_kfs=self.cfg.map.max_local_keyframes,
-            max_local_points=self.cfg.map.max_local_points,
-            num_levels=self.cfg.orb.num_levels,
-        )
-        # one host sync for everything the policy needs
-        Tcw_np = out.Tcw.cpu().numpy()
-        ok, n_inliers, ref_tracked, close_t, close_f = torch.stack(
-            [out.ok.to(torch.int64), out.n_inliers.to(torch.int64), out.ref_tracked.to(torch.int64),
-             out.close_tracked.to(torch.int64), out.close_free.to(torch.int64)]
-        ).tolist()
-        if not ok or n_inliers < self.cfg.tracking.min_inliers_local:
-            self.state = TrackState.LOST
-            self.velocity = None
-            self._log_pose(frame, False)
-            return TrackResult(Tcw_np, self.state, n_inliers, False)
-
-        self.state = TrackState.OK
-        self.velocity = out.Tcw @ se3.inverse(self.last_Tcw)
-        self.last_inliers = n_inliers
-        is_kf = self._need_new_keyframe(n_inliers, ref_tracked, close_t, close_f)
-        if is_kf:
-            self.kf_request = (frame, out.Tcw, out.point_idx)
-            self.frames_since_kf = 0
-        else:
-            self.frames_since_kf += 1
-        self.last_Tcw = out.Tcw
-        self.last_frame = frame
-        self.last_point_idx = out.point_idx
-        self._log_pose(frame, True, Tcw_np)
-        return TrackResult(Tcw_np, self.state, n_inliers, is_kf)
+        out = fused.track_step(self.map, frame, *self._anchors(), **self._track_sizes())
+        return self._finish(frame, out)
 
     def _ensure_params(self):
         if self._params is not None:
@@ -727,6 +691,82 @@ class Tracker:
             min_track_local=self.cfg.tracking.min_inliers_local,
             match_max_dist=self.cfg.tracking.match_max_dist,
         )
+
+    def process_rgbd_fast(self, image, depth_map, timestamp: float) -> TrackResult:
+        """One RGB-D frame as one call: extraction, depth seeding and the
+        track step (`fused.track_frame_rgbd`), for a tracker in state OK."""
+        from orbslam2_tpu_torch.pipeline import fused
+
+        frame, out = fused.track_frame_rgbd(
+            self.map, self.builder.extractor, self._as_tensor(image), self._as_tensor(depth_map),
+            self.builder._fresh_id(), *self._anchors(), 1.0 / self.cfg.tracking.depth_map_factor,
+            has_distortion=self.cfg.camera.has_distortion(), **self._track_sizes(),
+        )
+        return self._finish(frame._replace(timestamp=timestamp), out)
+
+    def process_stereo_fast(self, left, right, timestamp: float) -> TrackResult:
+        """One stereo frame as one call: extraction of both images, the
+        stereo match and the track step (`fused.track_frame_stereo`), for a
+        tracker in state OK."""
+        from orbslam2_tpu_torch.pipeline import fused
+
+        frame, out = fused.track_frame_stereo(
+            self.map, self.builder.extractor, self._as_tensor(left), self._as_tensor(right),
+            self.builder._fresh_id(), *self._anchors(),
+            has_distortion=self.cfg.camera.has_distortion(), **self._track_sizes(),
+        )
+        return self._finish(frame._replace(timestamp=timestamp), out)
+
+    def _as_tensor(self, x) -> torch.Tensor:
+        return torch.as_tensor(x, dtype=torch.float32, device=self.device)
+
+    def _anchors(self) -> tuple:
+        """The track step's arguments from the last frame to the params:
+        the last frame's features and bindings, its pose, the motion model
+        (identity without one), the reference keyframe."""
+        self._ensure_params()
+        f = self.last_frame
+        has_velocity = self.velocity is not None
+        velocity = self.velocity if has_velocity else torch.eye(4, device=self.device)
+        return (f.xy, self.last_point_idx, f.octave, f.angle, f.desc, self.last_Tcw, velocity,
+                has_velocity, self.ref_kf, self.K, self._params)
+
+    def _track_sizes(self) -> dict:
+        return dict(max_local_kfs=self.cfg.map.max_local_keyframes,
+                    max_local_points=self.cfg.map.max_local_points,
+                    num_levels=self.cfg.orb.num_levels)
+
+    def _finish(self, frame: FrameData, out) -> TrackResult:
+        """The host half of a tracked frame (`process` and the single-call
+        steps): one read of the pose and the five scalars the policy needs,
+        the LOST gate, the motion model and the keyframe policy. Pose and
+        scalars come back in one float64 read, which holds the counts and
+        the float32 pose exactly."""
+        flags = torch.stack([out.ok, out.n_inliers, out.ref_tracked, out.close_tracked,
+                             out.close_free]).to(torch.float64)
+        host = torch.cat([flags, out.Tcw.reshape(-1).to(torch.float64)]).tolist()
+        ok, n_inliers, ref_tracked, close_t, close_f = (int(v) for v in host[:5])
+        Tcw_np = np.asarray(host[5:], np.float32).reshape(4, 4)
+        if not ok or n_inliers < self.cfg.tracking.min_inliers_local:
+            self.state = TrackState.LOST
+            self.velocity = None
+            self._log_pose(frame, False)
+            return TrackResult(Tcw_np, self.state, n_inliers, False)
+
+        self.state = TrackState.OK
+        self.velocity = out.Tcw @ se3.inverse(self.last_Tcw)
+        is_kf = self._need_new_keyframe(n_inliers, ref_tracked, close_t, close_f)
+        if is_kf:
+            self.kf_request = (frame, out.Tcw, out.point_idx)
+            self.frames_since_kf = 0
+        else:
+            self.frames_since_kf += 1
+        self.last_Tcw = out.Tcw
+        self.last_frame = frame
+        self.last_point_idx = out.point_idx
+        self.last_inliers = n_inliers
+        self._log_pose(frame, True, Tcw_np)
+        return TrackResult(Tcw_np, self.state, n_inliers, is_kf)
 
     # -- keyframe policy ---------------------------------------------------
 

@@ -214,6 +214,64 @@ def reloc(cfg, n_map=34, n_black=3, revisit=10, tries=3):
                 orphaned=[e["kf_id"] for e in slam.log.of("keyframe") if e.get("orphaned")])
 
 
+def run_unfused(slam, frames, stereo: bool = False) -> None:
+    """The unfused path, which no entry point of `System` drives: RGB-D
+    (or stereo) initialization through `Tracker.process`, then every frame
+    through `process_rgbd_fast` (`process_stereo_fast`); on each keyframe
+    request the keyframe's insertion, its close-point depth seeds,
+    `LocalMapper.process_keyframe(run_ba=False)`, `post_keyframe` (local BA
+    and the cold `after_keyframe`), the culled keyframes' re-anchoring and
+    `Tracker.on_new_keyframe`. `frames` holds (image, depth) or (left,
+    right) pairs; the results land in `slam.results`, the map in
+    `slam.map`. `chip_smoke.run_unfused_session` makes the same calls in
+    the same order on the port."""
+    import jax.numpy as jnp
+
+    from orbslam2_tpu.slam_map import map_state as ms
+
+    t, mapper = slam.tracker, slam.local_mapper
+    fast = t.process_stereo_fast if stereo else t.process_rgbd_fast
+    build = slam.builder.stereo if stereo else slam.builder.rgbd
+    for i, (a, b) in enumerate(frames):
+        a, b = jnp.asarray(a), jnp.asarray(b)
+        res = fast(a, b, i / 30.0) if t.state == TrackState.OK else t.process(build(a, b, i / 30.0))
+        if t.kf_request is not None:
+            frame, Tcw, bind = t.kf_request
+            t.kf_request = None
+            st, kf = ms.add_keyframe(t.map, jnp.int32(frame.frame_id), Tcw, frame.xy, frame.ur,
+                                     frame.depth, frame.octave, frame.angle, frame.desc,
+                                     frame.valid, bind)
+            kf = int(kf)
+            st, seeds = t._create_depth_points(st, kf, frame, Tcw, bind)
+            st = mapper.process_keyframe(st, kf, run_ba=False)
+            t.map = slam.map = mapper.post_keyframe(st, kf, seeds)
+            slam._drain_culls()
+            t.on_new_keyframe(kf)
+        slam.results.append(res)
+    # the track steps donate the map they are given
+    slam.map = t.map
+
+
+def unfused(cfg, n_frames=72, stereo: bool = False):
+    """The forward dolly through `run_unfused`, loop closing off."""
+    seq = synthetic.textured_sequence(n_frames=n_frames, kind="forward", cam=cfg.camera)
+    if stereo:
+        cfg = dataclasses.replace(cfg, sensor=Sensor.STEREO)
+        frames = [seq.stereo(i)[:2] for i in range(n_frames)]
+    else:
+        frames = [seq.frame(i) for i in range(n_frames)]
+    slam = System(cfg, enable_mapping=True, enable_loop_closing=False)
+    t0 = time.perf_counter()
+    run_unfused(slam, frames, stereo=stereo)
+    wall = time.perf_counter() - t0
+    _, poses, tracked = slam.frame_poses()
+    return dict(frames=n_frames, tracked=int(tracked.sum()), lost=int((~tracked).sum()),
+                ate=float(ate_rmse(poses[tracked], seq.poses[tracked], align=True)),
+                keyframe_frames=[i for i, r in enumerate(slam.results) if r.is_keyframe],
+                keyframes=slam.num_keyframes(), points=slam.num_points(),
+                keyframes_inserted=int(slam.map.num_kf), cpu_wall_s=wall)
+
+
 def at_depth(cfg, depth: int, **tracking):
     """`cfg` at `pipeline_depth` `depth`, with other tracking fields replaced."""
     return dataclasses.replace(
@@ -230,6 +288,10 @@ SESSIONS = {
     "gap320": lambda d: gap(at_depth(MAPPING320, d)),
     "orbit320_pcg": lambda d: orbit(at_depth(ORBIT320_PCG, d)),
     "longrun": lambda d, n=800: orbit(at_depth(LONGRUN, d), LONGRUN_REV, int(n) - LONGRUN_REV),
+    # the unfused path at bench.py's sizes: RGB-D over segment A's 72
+    # frames, stereo over 24 (depth 0 only: `run_unfused` has no FIFO)
+    "unfused640": lambda d: unfused(BENCH),
+    "unfused_stereo640": lambda d: unfused(BENCH, 24, stereo=True),
 }
 DEFAULT = ("orbit640", "orbit320", "reloc640", "reloc_small")
 
