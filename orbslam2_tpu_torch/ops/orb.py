@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from orbslam2_tpu_torch import profiling
 from orbslam2_tpu_torch.config import OrbConfig
 from orbslam2_tpu_torch.ops import fast, patches, pyramid
 
@@ -164,6 +165,7 @@ class OrbExtractor(nn.Module):
         self.register_buffer("pattern", torch.from_numpy(make_brief_pattern()))
         self.register_buffer("blur_taps", pyramid.gaussian_kernel_1d())
 
+    @profiling.spanned("frame.build.extract")
     def forward(self, image: torch.Tensor) -> FrameFeatures:
         orb = self.orb
         dev = image.device

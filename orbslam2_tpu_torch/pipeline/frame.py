@@ -12,6 +12,7 @@ from typing import NamedTuple
 
 import torch
 
+from orbslam2_tpu_torch import profiling
 from orbslam2_tpu_torch.config import SlamConfig
 from orbslam2_tpu_torch.geometry import camera as cam_geo
 from orbslam2_tpu_torch.ops import orb, pyramid, stereo
@@ -32,6 +33,7 @@ class FrameData(NamedTuple):
     valid: torch.Tensor     # [S] bool
 
 
+@profiling.spanned("frame.build")
 def rgbd_frame(
     extractor: orb.OrbExtractor,
     image: torch.Tensor,
@@ -45,9 +47,10 @@ def rgbd_frame(
     """ORB extraction + undistortion + depth seeding of one RGB-D frame."""
     feats = extractor(image)
     und = cam_geo.undistort_pixels(feats.xy, K) if has_distortion else feats.xy
-    sm = stereo.compute_stereo_from_rgbd(
-        feats.xy, und, feats.valid, depth_map, inv_depth_factor, K.bf
-    )
+    with profiling.span("frame.build.depth"):
+        sm = stereo.compute_stereo_from_rgbd(
+            feats.xy, und, feats.valid, depth_map, inv_depth_factor, K.bf
+        )
     return FrameData(
         frame_id=frame_id,
         timestamp=timestamp,
@@ -62,6 +65,7 @@ def rgbd_frame(
     )
 
 
+@profiling.spanned("frame.build")
 def monocular_frame(
     extractor: orb.OrbExtractor,
     image: torch.Tensor,
@@ -89,6 +93,7 @@ def monocular_frame(
     )
 
 
+@profiling.spanned("frame.build")
 def stereo_frame(
     extractor: orb.OrbExtractor,
     left: torch.Tensor,
@@ -103,13 +108,14 @@ def stereo_frame(
     undistortion of the left keypoints, for one rectified pair."""
     fl = extractor(left)
     fr = extractor(right)
-    lv_l = pyramid.build_pyramid(left, extractor.orb)
-    lv_r = pyramid.build_pyramid(right, extractor.orb)
-    sm = stereo.compute_stereo_matches(
-        fl.xy, fl.octave, fl.desc, fl.valid,
-        fr.xy, fr.octave, fr.desc, fr.valid,
-        lv_l, lv_r, scale_factors, K.bf, K.fx,
-    )
+    with profiling.span("frame.build.stereo_match"):
+        lv_l = pyramid.build_pyramid(left, extractor.orb)
+        lv_r = pyramid.build_pyramid(right, extractor.orb)
+        sm = stereo.compute_stereo_matches(
+            fl.xy, fl.octave, fl.desc, fl.valid,
+            fr.xy, fr.octave, fr.desc, fr.valid,
+            lv_l, lv_r, scale_factors, K.bf, K.fx,
+        )
     und = cam_geo.undistort_pixels(fl.xy, K) if has_distortion else fl.xy
     return FrameData(
         frame_id=frame_id,

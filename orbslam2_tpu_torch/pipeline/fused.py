@@ -36,6 +36,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from orbslam2_tpu_torch import profiling
 from orbslam2_tpu_torch.geometry import camera as cam_geo
 from orbslam2_tpu_torch.geometry import se3
 from orbslam2_tpu_torch.ops.orb import OrbExtractor
@@ -70,6 +71,7 @@ class TrackOut(NamedTuple):
     close_free: torch.Tensor
 
 
+@profiling.spanned("tracking.step")
 def track_step(
     state: ms.MapState,
     frame: FrameData,
@@ -90,53 +92,55 @@ def track_step(
 ) -> TrackOut:
     """One tracking step (ORB-SLAM2 Track() minus keyframe creation).
     Updates the map's visibility counters in place."""
-    # ---- coarse stage B: reference keyframe (always computed). Preferred
-    # whenever healthy: motion-model associations are radius-censored
-    # around the velocity prediction and can be wrong but self-consistent
-    bind_ref = trk.reference_kf_match(
-        state.kf_desc[ref_kf], state.kf_point_idx[ref_kf],
-        state.kf_angle[ref_kf], state.kf_feat_valid[ref_kf],
-        state.mp_valid, frame,
-    )
-    obs_ref = trk.build_pose_observations(bind_ref, frame, state.mp_pos, state.mp_valid, p.inv_sigma2)
-    # the coarse stages only seed the local-map passes: a short schedule
-    res_ref = pose_optimize_fast(last_Tcw, obs_ref, K, rounds=2, iters=6)
-    ok_ref = res_ref.num_inliers >= p.min_track
-    use_ref = ok_ref & (res_ref.num_inliers >= 15)
+    with profiling.span("tracking.coarse"):
+        # ---- coarse stage B: reference keyframe (always computed). Preferred
+        # whenever healthy: motion-model associations are radius-censored
+        # around the velocity prediction and can be wrong but self-consistent
+        bind_ref = trk.reference_kf_match(
+            state.kf_desc[ref_kf], state.kf_point_idx[ref_kf],
+            state.kf_angle[ref_kf], state.kf_feat_valid[ref_kf],
+            state.mp_valid, frame,
+        )
+        obs_ref = trk.build_pose_observations(bind_ref, frame, state.mp_pos, state.mp_valid,
+                                              p.inv_sigma2)
+        # the coarse stages only seed the local-map passes: a short schedule
+        res_ref = pose_optimize_fast(last_Tcw, obs_ref, K, rounds=2, iters=6)
+        ok_ref = res_ref.num_inliers >= p.min_track
+        use_ref = ok_ref & (res_ref.num_inliers >= 15)
+        with profiling.span("tracking.coarse_read"):
+            use_ref = bool(use_ref)
 
-    if bool(use_ref):
-        Tcw = res_ref.Tcw
-        bind = torch.where(res_ref.inliers, bind_ref, -1)
-        coarse_ok = ok_ref
-    else:
-        # ---- coarse stage A: motion model, only when the anchor is weak
-        Tcw_pred = velocity @ last_Tcw
-        bind_r1, _ = trk.motion_model_match(
-            Tcw_pred, last_xy, last_point_idx, last_octave, last_angle,
-            last_desc, state.mp_pos, state.mp_valid, frame, K,
-            p.scale_factors, p.radius_th, p.match_max_dist,
-        )
-        bind_r2, _ = trk.motion_model_match(
-            Tcw_pred, last_xy, last_point_idx, last_octave, last_angle,
-            last_desc, state.mp_pos, state.mp_valid, frame, K,
-            p.scale_factors, 2.0 * p.radius_th, p.match_max_dist,
-        )
-        bind_mm = torch.where(torch.sum(bind_r1 >= 0) >= 20, bind_r1, bind_r2)
-        obs_mm = trk.build_pose_observations(bind_mm, frame, state.mp_pos, state.mp_valid, p.inv_sigma2)
-        res_mm = pose_optimize_fast(Tcw_pred, obs_mm, K, rounds=2, iters=6)
-        ok_mm = (
-            (res_mm.num_inliers >= p.min_track) & (torch.sum(bind_mm >= 0) >= 20) & has_velocity
-        )
-        Tcw = torch.where(ok_mm, res_mm.Tcw, res_ref.Tcw)
-        bind = torch.where(
-            ok_mm, torch.where(res_mm.inliers, bind_mm, -1), torch.where(res_ref.inliers, bind_ref, -1)
-        )
-        coarse_ok = ok_mm | ok_ref
-
-    # ---- local map: gather + two association / optimisation passes ----
-    _, _, lpts, lpts_mask, _ = trk.gather_local_map(
-        state, bind, max_local_kfs=max_local_kfs, max_local_points=max_local_points
-    )
+        if use_ref:
+            Tcw = res_ref.Tcw
+            bind = torch.where(res_ref.inliers, bind_ref, -1)
+            coarse_ok = ok_ref
+        else:
+            # ---- coarse stage A: motion model, only when the anchor is weak
+            Tcw_pred = velocity @ last_Tcw
+            bind_r1, _ = trk.motion_model_match(
+                Tcw_pred, last_xy, last_point_idx, last_octave, last_angle,
+                last_desc, state.mp_pos, state.mp_valid, frame, K,
+                p.scale_factors, p.radius_th, p.match_max_dist,
+            )
+            bind_r2, _ = trk.motion_model_match(
+                Tcw_pred, last_xy, last_point_idx, last_octave, last_angle,
+                last_desc, state.mp_pos, state.mp_valid, frame, K,
+                p.scale_factors, 2.0 * p.radius_th, p.match_max_dist,
+            )
+            bind_mm = torch.where(torch.sum(bind_r1 >= 0) >= 20, bind_r1, bind_r2)
+            obs_mm = trk.build_pose_observations(bind_mm, frame, state.mp_pos, state.mp_valid,
+                                                 p.inv_sigma2)
+            res_mm = pose_optimize_fast(Tcw_pred, obs_mm, K, rounds=2, iters=6)
+            ok_mm = (
+                (res_mm.num_inliers >= p.min_track) & (torch.sum(bind_mm >= 0) >= 20)
+                & has_velocity
+            )
+            Tcw = torch.where(ok_mm, res_mm.Tcw, res_ref.Tcw)
+            bind = torch.where(
+                ok_mm, torch.where(res_mm.inliers, bind_mm, -1),
+                torch.where(res_ref.inliers, bind_ref, -1)
+            )
+            coarse_ok = ok_mm | ok_ref
 
     def local_pass(Tcw, bind_seed, radius_mult, rounds, iters):
         b, vis = trk.search_local_points(
@@ -148,20 +152,25 @@ def track_step(
         r = pose_optimize_fast(Tcw, obs, K, rounds=rounds, iters=iters)
         return r.Tcw, torch.where(r.inliers, b, -1), r.num_inliers, vis
 
-    # pass 1 refines the coarse seed (3x6); pass 2, seeded with pass 1's
-    # inlier bindings, only adds matches for still-unbound features
-    T1, b1, n1, vis1 = local_pass(Tcw, bind, 1.0, rounds=3, iters=6)
-    acc1 = n1 >= p.min_track
-    T1s = torch.where(acc1, T1, Tcw)
-    b1s = torch.where(acc1, b1, bind)
-    T2, b2, n2, vis2 = local_pass(T1s, b1s, 0.6, rounds=4, iters=6)
-    acc2 = (n2 >= n1) & (n2 >= p.min_track)
-    Tcw_f = torch.where(acc2, T2, T1s)
-    bind_f = torch.where(acc2, b2, b1s)
-    n_inl = torch.where(acc2, n2, torch.where(acc1, n1, 0))
-
     P = state.capacity_mp
-    trk.update_seen_counters(state, lpts, vis1 | vis2, torch.clamp(bind_f, 0, P - 1), bind_f >= 0)
+    with profiling.span("tracking.local_map"):
+        # ---- local map: gather + two association / optimisation passes ----
+        _, _, lpts, lpts_mask, _ = trk.gather_local_map(
+            state, bind, max_local_kfs=max_local_kfs, max_local_points=max_local_points
+        )
+        # pass 1 refines the coarse seed (3x6); pass 2, seeded with pass 1's
+        # inlier bindings, only adds matches for still-unbound features
+        T1, b1, n1, vis1 = local_pass(Tcw, bind, 1.0, rounds=3, iters=6)
+        acc1 = n1 >= p.min_track
+        T1s = torch.where(acc1, T1, Tcw)
+        b1s = torch.where(acc1, b1, bind)
+        T2, b2, n2, vis2 = local_pass(T1s, b1s, 0.6, rounds=4, iters=6)
+        acc2 = (n2 >= n1) & (n2 >= p.min_track)
+        Tcw_f = torch.where(acc2, T2, T1s)
+        bind_f = torch.where(acc2, b2, b1s)
+        n_inl = torch.where(acc2, n2, torch.where(acc1, n1, 0))
+        trk.update_seen_counters(state, lpts, vis1 | vis2, torch.clamp(bind_f, 0, P - 1),
+                                 bind_f >= 0)
 
     # ---- keyframe-policy scalars: only points observed by >= 3
     # keyframes (2 while the map has <= 2) count toward ref coverage
@@ -295,108 +304,115 @@ def keyframe_step(
     dev = frame.xy.device
     cols = torch.arange(S, dtype=torch.int32, device=dev)
 
-    # 0) keep 2S slots free for this keyframe's points; the tracker's
-    # current bindings are about to be recorded and must survive
-    protect = torch.zeros(P, dtype=torch.bool, device=dev)
-    ms.masked_put_(protect, point_idx, True, point_idx >= 0)
-    lm.ensure_free_slots(state, state.num_kf.clone(), headroom=2 * S, protect=protect,
-                         min_age=recycle_min_age)
+    with profiling.span("mapping.insert"):
+        # 0) keep 2S slots free for this keyframe's points; the tracker's
+        # current bindings are about to be recorded and must survive
+        protect = torch.zeros(P, dtype=torch.bool, device=dev)
+        ms.masked_put_(protect, point_idx, True, point_idx >= 0)
+        lm.ensure_free_slots(state, state.num_kf.clone(), headroom=2 * S, protect=protect,
+                             min_age=recycle_min_age)
 
-    # 1) insert the keyframe with the tracker's bindings
-    kf_id = ms.add_keyframe(
-        state, frame.frame_id, Tcw, frame.xy, frame.ur, frame.depth, frame.octave,
-        frame.angle, frame.desc, frame.valid, point_idx,
-    )
+        # 1) insert the keyframe with the tracker's bindings
+        kf_id = ms.add_keyframe(
+            state, frame.frame_id, Tcw, frame.xy, frame.ur, frame.depth, frame.octave,
+            frame.angle, frame.desc, frame.valid, point_idx,
+        )
 
-    # 2) depth-seeded points: the close ones plus the 100 nearest
-    if create_close_points:
-        has_depth = frame.valid & (frame.depth > 0) & (point_idx < 0)
-        if all_depths:
-            create = has_depth
-        else:
-            depth_rank = torch.sum(
-                (frame.depth[None, :] < frame.depth[:, None]) & has_depth[None, :], dim=1
-            )
-            create = has_depth & ((frame.depth < p.close_depth) | (depth_rank < 100))
-        pw = se3.apply(se3.inverse(Tcw), cam_geo.backproject(frame.xy, frame.depth, K))
-        rays = pw - se3.camera_center(Tcw)
-        dist = torch.linalg.norm(rays, dim=-1)
-        normal = rays / torch.clamp(dist[:, None], min=1e-9)
-        max_d = dist * p.scale_factors[torch.clamp(frame.octave, 0, num_levels - 1).to(torch.int64)]
-        ms.add_points(state, pw, create, kf_id, cols, frame.desc, normal,
-                      max_d / scale_factor_last, max_d, frame.ur)
+        # 2) depth-seeded points: the close ones plus the 100 nearest
+        if create_close_points:
+            has_depth = frame.valid & (frame.depth > 0) & (point_idx < 0)
+            if all_depths:
+                create = has_depth
+            else:
+                depth_rank = torch.sum(
+                    (frame.depth[None, :] < frame.depth[:, None]) & has_depth[None, :], dim=1
+                )
+                create = has_depth & ((frame.depth < p.close_depth) | (depth_rank < 100))
+            pw = se3.apply(se3.inverse(Tcw), cam_geo.backproject(frame.xy, frame.depth, K))
+            rays = pw - se3.camera_center(Tcw)
+            dist = torch.linalg.norm(rays, dim=-1)
+            normal = rays / torch.clamp(dist[:, None], min=1e-9)
+            max_d = dist * p.scale_factors[
+                torch.clamp(frame.octave, 0, num_levels - 1).to(torch.int64)]
+            ms.add_points(state, pw, create, kf_id, cols, frame.desc, normal,
+                          max_d / scale_factor_last, max_d, frame.ur)
 
-    # 3) triangulate against the top covisible neighbours, all against this
-    # state; the first valid neighbour in covisibility order takes a slot
-    w = state.covis[kf_id] * state.kf_valid
-    _, neigh = trk._top_k(w, n_neighbors)
-    neigh_ok = w[neigh] >= covis_threshold
-    tri = [lm.triangulate_pair(state, kf_id, neigh[i], K, p.scale_factors, level_sigma2,
-                               baseline, num_levels=num_levels)
-           for i in range(n_neighbors)]
-    f2_all, pw_all, ok_all, dist1_all = (torch.stack(x) for x in zip(*tri))
-    ok_all = ok_all & neigh_ok[:, None] & (state.kf_point_idx[kf_id] < 0)[None, :]
-    nsel = torch.argmax(ok_all.to(torch.int32), dim=0)     # [S] winning neighbour row
-    any_ok = torch.any(ok_all, dim=0)
-    pw = pw_all[nsel, cols]
-    max_d = dist1_all[nsel, cols] * p.scale_factors[
-        torch.clamp(state.kf_octave[kf_id], 0, num_levels - 1).to(torch.int64)
-    ]
-    rays = pw - se3.camera_center(state.kf_Tcw[kf_id])
-    normal = rays / torch.clamp(torch.linalg.norm(rays, dim=-1, keepdim=True), min=1e-9)
-    new_pids = ms.add_points(
-        state, pw, any_ok, kf_id, cols, state.kf_desc[kf_id], normal,
-        max_d / scale_factor_last, max_d, state.kf_ur[kf_id],
-    )
-    for i in range(n_neighbors):
-        lm.bind_points_to_kf(state, neigh[i], f2_all[i], new_pids, (nsel == i) & (new_pids >= 0))
+    with profiling.span("mapping.triangulate"):
+        # 3) triangulate against the top covisible neighbours, all against this
+        # state; the first valid neighbour in covisibility order takes a slot
+        w = state.covis[kf_id] * state.kf_valid
+        _, neigh = trk._top_k(w, n_neighbors)
+        neigh_ok = w[neigh] >= covis_threshold
+        tri = [lm.triangulate_pair(state, kf_id, neigh[i], K, p.scale_factors, level_sigma2,
+                                   baseline, num_levels=num_levels)
+               for i in range(n_neighbors)]
+        f2_all, pw_all, ok_all, dist1_all = (torch.stack(x) for x in zip(*tri))
+        ok_all = ok_all & neigh_ok[:, None] & (state.kf_point_idx[kf_id] < 0)[None, :]
+        nsel = torch.argmax(ok_all.to(torch.int32), dim=0)     # [S] winning neighbour row
+        any_ok = torch.any(ok_all, dim=0)
+        pw = pw_all[nsel, cols]
+        max_d = dist1_all[nsel, cols] * p.scale_factors[
+            torch.clamp(state.kf_octave[kf_id], 0, num_levels - 1).to(torch.int64)
+        ]
+        rays = pw - se3.camera_center(state.kf_Tcw[kf_id])
+        normal = rays / torch.clamp(torch.linalg.norm(rays, dim=-1, keepdim=True), min=1e-9)
+        new_pids = ms.add_points(
+            state, pw, any_ok, kf_id, cols, state.kf_desc[kf_id], normal,
+            max_d / scale_factor_last, max_d, state.kf_ur[kf_id],
+        )
+        for i in range(n_neighbors):
+            lm.bind_points_to_kf(state, neigh[i], f2_all[i], new_pids,
+                                 (nsel == i) & (new_pids >= 0))
 
-    # 4) fuse with the neighbours and their top neighbours (ORB-SLAM2
-    # SearchInNeighbors): this keyframe's points into every target, all
-    # matched against one state and applied in order; then the deduped
-    # union of the targets' points into this keyframe
-    mine = state.kf_point_idx[kf_id].clone()
-    Kcap = state.capacity_kf
-    w2 = torch.where(neigh_ok[:, None], state.covis[neigh] * state.kf_valid, 0)   # [n1, K]
-    w2[:, kf_id] = 0                                       # not back to itself
-    _, neigh2 = trk._top_k(w2, n2_neighbors)              # [n1, n2]
-    ok2 = torch.gather(w2, 1, neigh2) > 0
-    targets = torch.cat([neigh, neigh2.reshape(-1)])
-    targets_ok = torch.cat([neigh_ok, ok2.reshape(-1)])
-    Tn = targets.shape[0]
-    order = torch.arange(Tn, device=dev)
-    tpos = torch.full((Kcap + 1,), Tn, dtype=torch.int64, device=dev).scatter_reduce(
-        0, torch.where(targets_ok, targets, Kcap), order, "amin", include_self=True
-    )
-    targets_ok = targets_ok & (tpos[targets] == order)
+    with profiling.span("mapping.fuse"):
+        # 4) fuse with the neighbours and their top neighbours (ORB-SLAM2
+        # SearchInNeighbors): this keyframe's points into every target, all
+        # matched against one state and applied in order; then the deduped
+        # union of the targets' points into this keyframe
+        mine = state.kf_point_idx[kf_id].clone()
+        Kcap = state.capacity_kf
+        w2 = torch.where(neigh_ok[:, None], state.covis[neigh] * state.kf_valid, 0)   # [n1, K]
+        w2[:, kf_id] = 0                                       # not back to itself
+        _, neigh2 = trk._top_k(w2, n2_neighbors)              # [n1, n2]
+        ok2 = torch.gather(w2, 1, neigh2) > 0
+        targets = torch.cat([neigh, neigh2.reshape(-1)])
+        targets_ok = torch.cat([neigh_ok, ok2.reshape(-1)])
+        Tn = targets.shape[0]
+        order = torch.arange(Tn, device=dev)
+        tpos = torch.full((Kcap + 1,), Tn, dtype=torch.int64, device=dev).scatter_reduce(
+            0, torch.where(targets_ok, targets, Kcap), order, "amin", include_self=True
+        )
+        targets_ok = targets_ok & (tpos[targets] == order)
 
-    feats = [lm.fuse_match(state, mine, mine >= 0, targets[t], K, p.scale_factors, p.bounds,
-                           num_levels=num_levels)
-             for t in range(Tn)]
-    for t in range(Tn):
-        lm.fuse_apply(state, torch.where(targets_ok[t], mine, -1), feats[t], targets[t])
+        feats = [lm.fuse_match(state, mine, mine >= 0, targets[t], K, p.scale_factors, p.bounds,
+                               num_levels=num_levels)
+                 for t in range(Tn)]
+        for t in range(Tn):
+            lm.fuse_apply(state, torch.where(targets_ok[t], mine, -1), feats[t], targets[t])
 
-    # the union, first occurrence only, compacted to its valid rows in
-    # order (the one host read of this stage): the rows of a match are
-    # independent and conflicts go to the lowest row, so the bindings are
-    # those of the padded [Tn * S] union
-    theirs = torch.where(targets_ok[:, None], state.kf_point_idx[targets], -1).reshape(-1)
-    tclip = torch.clamp(theirs, 0, P - 1).to(torch.int64)
-    M = theirs.shape[0]
-    rows = torch.arange(M, device=dev)
-    occ = torch.full((P + 1,), M, dtype=torch.int64, device=dev).scatter_reduce(
-        0, torch.where(theirs >= 0, tclip, P), rows, "amin", include_self=True
-    )
-    theirs = theirs[(theirs >= 0) & (occ[tclip] == rows)]
-    lm.fuse_points_into_kf(state, theirs, theirs >= 0, kf_id, K, p.scale_factors, p.bounds,
-                           num_levels=num_levels)
+        # the union, first occurrence only, compacted to its valid rows in
+        # order (the one host read of this stage): the rows of a match are
+        # independent and conflicts go to the lowest row, so the bindings are
+        # those of the padded [Tn * S] union
+        theirs = torch.where(targets_ok[:, None], state.kf_point_idx[targets], -1).reshape(-1)
+        tclip = torch.clamp(theirs, 0, P - 1).to(torch.int64)
+        M = theirs.shape[0]
+        rows = torch.arange(M, device=dev)
+        occ = torch.full((P + 1,), M, dtype=torch.int64, device=dev).scatter_reduce(
+            0, torch.where(theirs >= 0, tclip, P), rows, "amin", include_self=True
+        )
+        theirs = theirs[(theirs >= 0) & (occ[tclip] == rows)]
+        lm.fuse_points_into_kf(state, theirs, theirs >= 0, kf_id, K, p.scale_factors, p.bounds,
+                               num_levels=num_levels)
 
-    # 5) refresh the stats of this keyframe's points and the new ones
-    ms.recompute_point_stats(state, state.kf_point_idx[kf_id].clone(), p.scale_factors)
-    ms.recompute_point_stats(state, new_pids, p.scale_factors)
+    with profiling.span("mapping.refresh"):
+        # 5) refresh the stats of this keyframe's points and the new ones
+        ms.recompute_point_stats(state, state.kf_point_idx[kf_id].clone(), p.scale_factors)
+        ms.recompute_point_stats(state, new_pids, p.scale_factors)
     return kf_id, new_pids
 
 
+@profiling.spanned("mapping.local_ba")
 def local_ba_step(
     state: ms.MapState,
     kf_id,
@@ -463,6 +479,7 @@ def deferred_local_ba(
     _reanchor_depth_seeds(state, kf_id, K)
 
 
+@profiling.spanned("mapping.keyframe")
 def keyframe_full_step(
     state: ms.MapState,
     frame: FrameData,
@@ -505,10 +522,12 @@ def keyframe_full_step(
         create_close_points=create_close_points, all_depths=all_depths,
         recycle_min_age=recycle_min_age,
     )
+    profiling.count("mapping.keyframes")
     dev = frame.xy.device
-    window = torch.as_tensor(probation_window, dtype=torch.int32).to(dev)
-    # "now" for probation ages is this keyframe's seq (slot ids recycle)
-    keep = lm.cull_points(state, window, state.kf_seq[kf_id].clone())
+    with profiling.span("mapping.cull_points"):
+        window = torch.as_tensor(probation_window, dtype=torch.int32).to(dev)
+        # "now" for probation ages is this keyframe's seq (slot ids recycle)
+        keep = lm.cull_points(state, window, state.kf_seq[kf_id].clone())
     if run_ba:
         local_ba_step(
             state, kf_id, inv_sigma2, K, max_local=max_local, max_fixed=max_fixed,
@@ -517,13 +536,14 @@ def keyframe_full_step(
         _reanchor_depth_seeds(state, kf_id, K)
     # keyframe culling sweep over every covisible neighbour; the host reads
     # it with the other keyframe outputs
-    Kc = state.capacity_kf
-    wc = state.covis[kf_id] * state.kf_valid
-    wc[0] = 0                                   # never cull the origin
-    ids = torch.arange(Kc, dtype=torch.int32, device=dev)
-    cull_ok = (wc >= covis_threshold) & (ids != kf_id)
-    cull_red = torch.where(cull_ok, lm.keyframe_redundancy(state, ids), 0.0)
-    cull_ids = torch.where(cull_ok, ids, -1)
+    with profiling.span("mapping.redundancy"):
+        Kc = state.capacity_kf
+        wc = state.covis[kf_id] * state.kf_valid
+        wc[0] = 0                                   # never cull the origin
+        ids = torch.arange(Kc, dtype=torch.int32, device=dev)
+        cull_ok = (wc >= covis_threshold) & (ids != kf_id)
+        cull_red = torch.where(cull_ok, lm.keyframe_redundancy(state, ids), 0.0)
+        cull_ids = torch.where(cull_ok, ids, -1)
     return (kf_id, new_pids, keep, state.kf_Tcw[kf_id].clone(),
             state.kf_point_idx[kf_id].clone(), cull_ids, cull_red)
 
@@ -651,7 +671,8 @@ def frame_and_keyframe_step(
     )
     # float64 holds the counts and the float32 pose exactly
     flags = torch.stack([accept, out.n_inliers, need_kf, out.ok]).to(torch.float64)
-    host = torch.cat([flags, out.Tcw.reshape(-1).to(torch.float64)]).tolist()
+    with profiling.span("session.decision_read"):
+        host = torch.cat([flags, out.Tcw.reshape(-1).to(torch.float64)]).tolist()
     accept, n_inl, is_kf, ok = bool(host[0]), int(host[1]), bool(host[2]), bool(host[3])
     pose = np.asarray(host[4:], np.float32).reshape(4, 4)
 

@@ -24,6 +24,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from orbslam2_tpu_torch import profiling
 from orbslam2_tpu_torch.config import SlamConfig, Sensor
 from orbslam2_tpu_torch.geometry import camera as cam_geo
 from orbslam2_tpu_torch.geometry import se3, sim3
@@ -246,39 +247,45 @@ def _verify_candidate(
     [8], f2_final [S], guided_pt [S], loop_pts [M], loop_mask [M])."""
     S = state.kf_xy.shape[1]
     P = state.capacity_mp
-    pidc = _i64(torch.clamp(state.kf_point_idx[kf_id], 0, P - 1))
-    vc = state.kf_feat_valid[kf_id] & (state.kf_point_idx[kf_id] >= 0) & state.mp_valid[pidc]
-    pidk = _i64(torch.clamp(state.kf_point_idx[cand], 0, P - 1))
-    vk = state.kf_feat_valid[cand] & (state.kf_point_idx[cand] >= 0) & state.mp_valid[pidk]
-    res = match.search_brute(
-        state.kf_desc[kf_id], vc, state.kf_angle[kf_id],
-        state.kf_desc[cand], vk, state.kf_angle[cand],
-        max_dist=match.TH_LOW, ratio=0.75, check_rotation=True,
-    )
+    with profiling.span("loop.verify.brute"):
+        pidc = _i64(torch.clamp(state.kf_point_idx[kf_id], 0, P - 1))
+        vc = state.kf_feat_valid[kf_id] & (state.kf_point_idx[kf_id] >= 0) & state.mp_valid[pidc]
+        pidk = _i64(torch.clamp(state.kf_point_idx[cand], 0, P - 1))
+        vk = state.kf_feat_valid[cand] & (state.kf_point_idx[cand] >= 0) & state.mp_valid[pidk]
+        res = match.search_brute(
+            state.kf_desc[kf_id], vc, state.kf_angle[kf_id],
+            state.kf_desc[cand], vk, state.kf_angle[cand],
+            max_dist=match.TH_LOW, ratio=0.75, check_rotation=True,
+        )
     n_brute = res.num_matches
     f2 = res.best_idx
     matched = f2 >= 0
     f2c = _i64(torch.clamp(f2, 0, S - 1))
-    s1 = level_sigma2[_i64(torch.clamp(state.kf_octave[kf_id], 0, num_levels - 1))]
-    s2 = level_sigma2[_i64(torch.clamp(state.kf_octave[cand][f2c], 0, num_levels - 1))]
-    sr = horn.ransac_sim3(
-        state.mp_pos[pidc], state.mp_pos[pidk[f2c]], matched,
-        state.kf_xy[kf_id], state.kf_xy[cand][f2c], s1, s2,
-        state.kf_Tcw[kf_id], state.kf_Tcw[cand], K, draw(matched),
-        min_inliers=min_inliers, fix_scale=fix_scale,
-    )
-    f2_ext = sim3_match_extend(state, kf_id, cand, sr.s, sr.R, sr.t, K, scale_factors,
-                               num_levels=num_levels)
-    f2_all = torch.where(matched & sr.inliers, f2, f2_ext)
-    pc1, pc2, uv1, uv2, inv1, inv2, pmask = build_sim3_pairs(state, kf_id, cand, f2_all,
-                                                             level_sigma2)
-    opt = sim3_opt.optimize_sim3(sr.s, sr.R, sr.t, pc1, pc2, uv1, uv2, inv1, inv2, pmask, K,
-                                 fix_scale)
-    f2_final = torch.where(opt.inliers, f2_all, -1)
-    S_cw = sim3.compose((opt.s, opt.R, opt.t), sim3.from_se3(state.kf_Tcw[cand]))
-    loop_pts, loop_mask = gather_loop_points(state, cand, covis_threshold=covis_threshold)
-    count, guided_pt = guided_projection_count(state, kf_id, loop_pts, loop_mask, *S_cw,
-                                               f2_final, K, scale_factors, num_levels=num_levels)
+    with profiling.span("loop.verify.ransac"):
+        s1 = level_sigma2[_i64(torch.clamp(state.kf_octave[kf_id], 0, num_levels - 1))]
+        s2 = level_sigma2[_i64(torch.clamp(state.kf_octave[cand][f2c], 0, num_levels - 1))]
+        sr = horn.ransac_sim3(
+            state.mp_pos[pidc], state.mp_pos[pidk[f2c]], matched,
+            state.kf_xy[kf_id], state.kf_xy[cand][f2c], s1, s2,
+            state.kf_Tcw[kf_id], state.kf_Tcw[cand], K, draw(matched),
+            min_inliers=min_inliers, fix_scale=fix_scale,
+        )
+    with profiling.span("loop.verify.extend"):
+        f2_ext = sim3_match_extend(state, kf_id, cand, sr.s, sr.R, sr.t, K, scale_factors,
+                                   num_levels=num_levels)
+        f2_all = torch.where(matched & sr.inliers, f2, f2_ext)
+    with profiling.span("loop.verify.optimize"):
+        pc1, pc2, uv1, uv2, inv1, inv2, pmask = build_sim3_pairs(state, kf_id, cand, f2_all,
+                                                                 level_sigma2)
+        opt = sim3_opt.optimize_sim3(sr.s, sr.R, sr.t, pc1, pc2, uv1, uv2, inv1, inv2, pmask, K,
+                                     fix_scale)
+        f2_final = torch.where(opt.inliers, f2_all, -1)
+    with profiling.span("loop.verify.guided"):
+        S_cw = sim3.compose((opt.s, opt.R, opt.t), sim3.from_se3(state.kf_Tcw[cand]))
+        loop_pts, loop_mask = gather_loop_points(state, cand, covis_threshold=covis_threshold)
+        count, guided_pt = guided_projection_count(state, kf_id, loop_pts, loop_mask, *S_cw,
+                                                   f2_final, K, scale_factors,
+                                                   num_levels=num_levels)
     # the reference's strict chain: >= 20 brute matches, >= min_inliers
     # after the joint optimisation, >= 40 guided matches
     ok = (n_brute >= 20) & (opt.num_inliers >= min_inliers) & (count >= 40)
@@ -565,6 +572,7 @@ class LoopCloser:
                     max_candidates=int(self.cfg.vocab.max_candidates),
                     recent_exclusion=int(self.cfg.vocab.recent_exclusion))
 
+    @profiling.spanned("loop.detect_dispatch")
     def dispatch_detect(self, state: ms.MapState, kf_id: int) -> bool:
         """Run DetectLoop's device side for this keyframe; its host side
         (`finalize_detect`) runs on a later frame. Returns True when a
@@ -603,13 +611,16 @@ class LoopCloser:
                 "handles": None,
             }
             self._dispatch_next_verify(state)
-        elif accepted and self.log is not None:
+        elif accepted:
             # a verification chain is in flight; these candidates drop
-            self.log.emit("loop_verify_busy", kf_id=int(kf_id), n_dropped=len(accepted))
+            profiling.count("loop.candidates_dropped", len(accepted))
+            if self.log is not None:
+                self.log.emit("loop_verify_busy", kf_id=int(kf_id), n_dropped=len(accepted))
         return state, None
 
     def _dispatch_next_verify(self, state: ms.MapState):
         pv = self._pending_verify
+        profiling.count("loop.verify.dispatched")
         pv["handles"] = self._run_verify(state, pv["kf_id"], pv["cands"][pv["idx"]])
 
     def _poll_verify(self, state: ms.MapState) -> tuple[ms.MapState, Optional[LoopResult]]:
@@ -619,13 +630,16 @@ class LoopCloser:
         kf_id = pv["kf_id"]
         cand = pv["cands"][pv["idx"]]
         stats_d, S12_pack, f2_final, guided_pt, loop_pts, loop_mask = pv["handles"]
-        n_brute, n_opt, n_guided, ok = stats_d.tolist()
+        with profiling.span("loop.verify_read", kf_id=int(kf_id), cand=int(cand)):
+            n_brute, n_opt, n_guided, ok = stats_d.tolist()
         # either slot culled and recycled meanwhile: the result is stale
         stale = (self._seq_of.get(kf_id, -1) != pv["seq"]
                  or self._seq_of.get(cand, -1) != pv["cand_seqs"][pv["idx"]])
         if ok and not stale:
             # culled but not yet recycled: invisible to _seq_of
-            stale = not all(state.kf_valid[[kf_id, cand]].tolist())
+            with profiling.span("loop.verify_read", kf_id=int(kf_id), cand=int(cand)):
+                stale = not all(state.kf_valid[[kf_id, cand]].tolist())
+        self._count_outcome(n_brute, n_opt, ok, stale)
         if ok and not stale:
             self._pending_verify = None
             # points may have died since the dispatch: gate on the live map
@@ -660,8 +674,10 @@ class LoopCloser:
         consecutive keyframes. Returns at most 6 accepted candidates, best
         accumulated score first."""
         cand_d, mask_d, covis_d = handles
-        cand, mask = cand_d.tolist(), mask_d.tolist()
-        cand_covis = covis_d.cpu().numpy()
+        with profiling.span("loop.detect_read", kf_id=int(kf_id)):
+            cand, mask = cand_d.tolist(), mask_d.tolist()
+            cand_covis = covis_d.cpu().numpy()
+        profiling.count("loop.detections")
         cands = [c for c, m in zip(cand, mask) if m]
         th = self.cfg.vocab.covisibility_consistency_th
         new_groups: list[tuple[set, int, int]] = []
@@ -695,27 +711,47 @@ class LoopCloser:
                 cands=cands, cand_seq=[int(self._seq_of.get(c, -1)) for c in cands],
                 kf_seq=int(seq_cur) if seq_cur is not None else -1,
             )
+        profiling.count("loop.candidates", len(accepted[:6]))
         return accepted[:6]
 
     # ------------------------------------------------------------------
     def _run_verify(self, state: ms.MapState, kf_id: int, cand: int, draw=None):
         """The whole ComputeSim3 chain for one candidate (no host read);
         `draw` defaults to the loop closer's own RANSAC draws."""
-        return _verify_candidate(
-            state, kf_id, cand, draw or self._draw, self.K, self.scale_factors, self.level_sigma2,
-            min_inliers=int(self.cfg.solver.sim3_min_inliers),
-            fix_scale=self.cfg.sensor != Sensor.MONOCULAR,
-            covis_threshold=int(self.cfg.map.covis_threshold),
-            num_levels=int(self.cfg.orb.num_levels),
-        )
+        with profiling.span("loop.verify", kf_id=int(kf_id), cand=int(cand)):
+            return _verify_candidate(
+                state, kf_id, cand, draw or self._draw, self.K, self.scale_factors,
+                self.level_sigma2,
+                min_inliers=int(self.cfg.solver.sim3_min_inliers),
+                fix_scale=self.cfg.sensor != Sensor.MONOCULAR,
+                covis_threshold=int(self.cfg.map.covis_threshold),
+                num_levels=int(self.cfg.orb.num_levels),
+            )
+
+    def _count_outcome(self, n_brute: int, n_opt: int, ok: bool, stale: bool) -> None:
+        """The tracer's count of a verification read: accepted, stale, or
+        rejected at the first of the chain's gates it failed."""
+        if stale:
+            profiling.count("loop.verify.stale")
+        elif ok:
+            profiling.count("loop.verify.accepted")
+        elif n_brute < 20:
+            profiling.count("loop.verify.rejected.brute")
+        elif n_opt < int(self.cfg.solver.sim3_min_inliers):
+            profiling.count("loop.verify.rejected.opt")
+        else:
+            profiling.count("loop.verify.rejected.guided")
 
     def compute_sim3(self, state: ms.MapState, kf_id: int, cand: int):
         """ComputeSim3 for one candidate, synchronous. Returns (success,
         (s, R, t) candidate-cam -> current-cam, n_inliers, f2_for_f1,
         guided matches)."""
+        profiling.count("loop.verify.dispatched")
         stats_d, S12_pack, f2_final, guided_pt, loop_pts, loop_mask = \
             self._run_verify(state, kf_id, cand)
-        n_brute, n_opt, n_guided, ok = stats_d.tolist()
+        with profiling.span("loop.verify_read", kf_id=int(kf_id), cand=int(cand)):
+            n_brute, n_opt, n_guided, ok = stats_d.tolist()
+        self._count_outcome(n_brute, n_opt, ok, False)
         if not ok:
             # the deepest gate reached
             return False, None, (n_opt if n_brute >= 20 else 0), None, n_guided
@@ -757,6 +793,7 @@ class LoopCloser:
             self._guided_pt = None
 
     # ------------------------------------------------------------------
+    @profiling.spanned("loop.correct")
     def correct_loop(self, state: ms.MapState, kf_id: int, loop_kf: int, S12,
                      run_global_ba: bool = True, matches=None) -> ms.MapState:
         """CorrectLoop, in place: propagate the corrected Sim3 through the
@@ -904,6 +941,7 @@ class LoopCloser:
         if self.log is not None:
             self.log.emit("gba_start", total_iters=self.cfg.solver.global_ba_iters)
 
+    @profiling.spanned("gba.step")
     def step_gba_async(self, state: ms.MapState) -> tuple[ms.MapState, bool]:
         """Run one slice of the global BA in flight. Returns (state,
         folded): folded is True when the last slice ran and the result was

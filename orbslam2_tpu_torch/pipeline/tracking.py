@@ -16,6 +16,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from orbslam2_tpu_torch import profiling
 from orbslam2_tpu_torch.config import SlamConfig, Sensor
 from orbslam2_tpu_torch.geometry import camera as cam_geo
 from orbslam2_tpu_torch.geometry import se3
@@ -571,6 +572,7 @@ class Tracker:
         return epnp.draw_pnp_samples(mask, self.cfg.solver.pnp_ransac_iters,
                                      self.init_generator)
 
+    @profiling.spanned("tracking.relocalize")
     def relocalize(self, frame: FrameData, db) -> bool:
         """Recover from LOST through the keyframe database (ORB-SLAM2
         Tracking::Relocalization): for each of the best 5 candidates, a
