@@ -7,7 +7,10 @@ CorrectLoop and RunGlobalBundleAdjustment, on the solvers of `vocab/` and
 `solvers/`. The schedule is the reference's: detection is dispatched when
 a keyframe is inserted and finalised on a later frame, one candidate's
 verification runs per frame, and a global BA runs `gba_slice_iters`
-iterations per frame and is folded back in when done.
+iterations per frame and is folded back in when done. A verification
+reads one number to the host, its brute match count, and stops there
+below 20 matches, as ORB-SLAM2's ComputeSim3 discards such a candidate;
+the rest of its result is read on the next frame.
 
 The map is updated in place, as everywhere in the port. The RANSAC draws
 of the Sim3 verification come from the loop closer's CPU generator
@@ -92,6 +95,13 @@ class DescriptorReservoir:
         valid = np.zeros(self.cap, bool)
         valid[: self.n] = True
         return self.buf, valid
+
+
+# the loop region's capacity (ORB-SLAM2's mvpLoopMapPoints)
+MAX_LOOP_POINTS = 4096
+# ComputeSim3's first gate: a candidate with fewer brute (SearchByBoW)
+# matches is discarded
+MIN_BRUTE_MATCHES = 20
 
 
 def _first_set(flags: torch.Tensor, size: int) -> torch.Tensor:
@@ -183,7 +193,7 @@ def build_sim3_pairs(state: ms.MapState, kf1: int, kf2: int, f2_for_f1, level_si
 
 
 def gather_loop_points(state: ms.MapState, loop_kf: int, covis_threshold: int = 15,
-                       max_loop_points: int = 4096):
+                       max_loop_points: int = MAX_LOOP_POINTS):
     """The loop region's landmarks: points bound in loop_kf or its
     covisible neighbours (ORB-SLAM2's mvpLoopMapPoints), lowest slot
     first. Returns (ids [M], mask [M])."""
@@ -222,6 +232,21 @@ def guided_projection_count(state: ms.MapState, kf1: int, loop_pts, loop_mask, s
     return count, matched_pt
 
 
+def _discarded(n_brute: int, S: int, device) -> tuple:
+    """The outputs of a candidate discarded after the brute match, made
+    without a kernel of the chain: the stats (n_brute, 0, 0, 0) as a CPU
+    tensor (the host holds them already), and in place of the Sim3, the
+    match and guided sets and the loop region the identity, no matches and
+    an empty region, at their shapes on the map's device."""
+    stats = torch.tensor([n_brute, 0, 0, 0], dtype=torch.int32)
+    S12 = torch.zeros(8, device=device)
+    S12[:2] = 1.0       # s = 1, q = (1, 0, 0, 0), t = 0
+    none = torch.full((S,), -1, dtype=torch.int32, device=device)
+    return (stats, S12, none, none.clone(),
+            torch.zeros(MAX_LOOP_POINTS, dtype=torch.int32, device=device),
+            torch.zeros(MAX_LOOP_POINTS, dtype=torch.bool, device=device))
+
+
 def _verify_candidate(
     state: ms.MapState,
     kf_id: int,
@@ -235,13 +260,21 @@ def _verify_candidate(
     covis_threshold: int = 15,
     num_levels: int = 8,
 ):
-    """The whole ComputeSim3 chain for one candidate, with no read back to
-    the host: brute match, Sim3 RANSAC, SearchBySim3 extension, joint
-    OptimizeSim3, guided projection of the loop region with the corrected
-    Scw. `draw` turns the brute match mask [S] into the RANSAC's [iters, 3]
-    minimal sets. The gates (>= 20 brute matches, >= min_inliers after
-    optimisation, >= 40 guided) fold into one `ok` flag; RANSAC's own
-    `success` is not among them, as in the reference.
+    """The ComputeSim3 chain for one candidate: brute match, Sim3 RANSAC,
+    SearchBySim3 extension, joint OptimizeSim3, guided projection of the
+    loop region with the corrected Scw. `draw` turns the brute match mask
+    [S] into the RANSAC's [iters, 3] minimal sets; it is called once for
+    every candidate, so that later candidates draw the same sets whether
+    this one ran whole or not.
+
+    The brute match's count is the chain's one read to the host. Below 20
+    matches the candidate is discarded there, as ORB-SLAM2's ComputeSim3
+    discards it after SearchByBoW: nothing past the draw is issued, the
+    tracer counts `loop.verify.cut`, and the outputs are `_discarded`'s,
+    stats (n_brute, 0, 0, 0). Otherwise the chain runs on with no further
+    read, and its later gates (>= min_inliers after optimisation, >= 40
+    guided) fold into one `ok` flag; RANSAC's own `success` is not among
+    them, as in the reference.
 
     Returns (stats [4] int32 = (n_brute, n_opt, n_guided, ok), S12 pack
     [8], f2_final [S], guided_pt [S], loop_pts [M], loop_mask [M])."""
@@ -257,9 +290,14 @@ def _verify_candidate(
             state.kf_desc[cand], vk, state.kf_angle[cand],
             max_dist=match.TH_LOW, ratio=0.75, check_rotation=True,
         )
-    n_brute = res.num_matches
+        n_brute = res.num_matches
+        n_read = int(n_brute)
     f2 = res.best_idx
     matched = f2 >= 0
+    samples = draw(matched)
+    if n_read < MIN_BRUTE_MATCHES:
+        profiling.count("loop.verify.cut")
+        return _discarded(n_read, S, f2.device)
     f2c = _i64(torch.clamp(f2, 0, S - 1))
     with profiling.span("loop.verify.ransac"):
         s1 = level_sigma2[_i64(torch.clamp(state.kf_octave[kf_id], 0, num_levels - 1))]
@@ -267,7 +305,7 @@ def _verify_candidate(
         sr = horn.ransac_sim3(
             state.mp_pos[pidc], state.mp_pos[pidk[f2c]], matched,
             state.kf_xy[kf_id], state.kf_xy[cand][f2c], s1, s2,
-            state.kf_Tcw[kf_id], state.kf_Tcw[cand], K, draw(matched),
+            state.kf_Tcw[kf_id], state.kf_Tcw[cand], K, samples,
             min_inliers=min_inliers, fix_scale=fix_scale,
         )
     with profiling.span("loop.verify.extend"):
@@ -286,9 +324,9 @@ def _verify_candidate(
         count, guided_pt = guided_projection_count(state, kf_id, loop_pts, loop_mask, *S_cw,
                                                    f2_final, K, scale_factors,
                                                    num_levels=num_levels)
-    # the reference's strict chain: >= 20 brute matches, >= min_inliers
-    # after the joint optimisation, >= 40 guided matches
-    ok = (n_brute >= 20) & (opt.num_inliers >= min_inliers) & (count >= 40)
+    # the reference's strict chain: >= 20 brute matches (held above),
+    # >= min_inliers after the joint optimisation, >= 40 guided matches
+    ok = (opt.num_inliers >= min_inliers) & (count >= 40)
     stats = torch.stack([x.to(torch.int32) for x in (n_brute, opt.num_inliers, count, ok)])
     return (stats, sim3.pack((opt.s, opt.R, opt.t)), f2_final, guided_pt, loop_pts, loop_mask)
 
@@ -716,8 +754,9 @@ class LoopCloser:
 
     # ------------------------------------------------------------------
     def _run_verify(self, state: ms.MapState, kf_id: int, cand: int, draw=None):
-        """The whole ComputeSim3 chain for one candidate (no host read);
-        `draw` defaults to the loop closer's own RANSAC draws."""
+        """The ComputeSim3 chain for one candidate (`_verify_candidate`: one
+        host read, and a stop below 20 brute matches); `draw` defaults to
+        the loop closer's own RANSAC draws."""
         with profiling.span("loop.verify", kf_id=int(kf_id), cand=int(cand)):
             return _verify_candidate(
                 state, kf_id, cand, draw or self._draw, self.K, self.scale_factors,
@@ -735,7 +774,7 @@ class LoopCloser:
             profiling.count("loop.verify.stale")
         elif ok:
             profiling.count("loop.verify.accepted")
-        elif n_brute < 20:
+        elif n_brute < MIN_BRUTE_MATCHES:
             profiling.count("loop.verify.rejected.brute")
         elif n_opt < int(self.cfg.solver.sim3_min_inliers):
             profiling.count("loop.verify.rejected.opt")
@@ -754,7 +793,7 @@ class LoopCloser:
         self._count_outcome(n_brute, n_opt, ok, False)
         if not ok:
             # the deepest gate reached
-            return False, None, (n_opt if n_brute >= 20 else 0), None, n_guided
+            return False, None, (n_opt if n_brute >= MIN_BRUTE_MATCHES else 0), None, n_guided
         self._loop_pts = (loop_pts, loop_mask)
         self._guided_pt = guided_pt
         return True, sim3.unpack(S12_pack), n_opt, f2_final, n_guided
@@ -762,9 +801,10 @@ class LoopCloser:
     def warmup_correction(self, state: ms.MapState):
         """Run the whole correction chain once on a throwaway copy of the
         map and discard every result: a degenerate self-match through the
-        Sim3 verification, `correct_loop` and the global-BA slices with
-        their fold-in (the reference's `warmup_correction`, which compiles
-        the same chain). What it moves off the tracking path is first-use
+        Sim3 verification (keyframe 0 against itself, which passes the
+        brute gate), `correct_loop` and the global-BA slices with their
+        fold-in (the reference's `warmup_correction`, which compiles the
+        same chain). What it moves off the tracking path is first-use
         cost: the first `torch.func` transform of a process imports
         `torch._dynamo`, `torch.distributed.tensor` and sympy (about 3 s on
         the host), and the card loads each new kernel at its first launch.

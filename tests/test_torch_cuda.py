@@ -463,6 +463,59 @@ def test_verify_candidate_card_matches_cpu(device, loop_map):
         assert torch.equal(a.cpu(), b)
 
 
+def test_verify_candidate_cut_on_card(device, loop_map):
+    """Keyframe 2 against keyframe 0 with all but ten of keyframe 0's
+    points made invalid, so fewer than 20 brute matches: the card reads
+    the CPU's stats (n_brute, 0, 0, 0) and stops after the brute match.
+    Only `loop.verify.brute` runs under `loop.verify`, with its one K1
+    launch and no K2; past it the host makes no more CUDA launch calls
+    than the RANSAC draw and the placeholder outputs take (the whole chain
+    makes about 17,000)."""
+    from orbslam2_tpu_torch import convert, profiling
+    from orbslam2_tpu_torch.pipeline import loop_closing as lc
+    from orbslam2_tpu_torch.solvers import horn
+    from slambench import program_trace
+
+    slam, _ = loop_map
+    arrays = convert.map_state_to_numpy(slam.map)
+    pids = arrays["kf_point_idx"][0]
+    arrays["mp_valid"][pids[pids >= 0][10:]] = False
+    sf = slam.loop_closer.scale_factors
+    ls2 = slam.loop_closer.level_sigma2
+
+    def run(dev):
+        with profiling.span("loop.verify"):
+            return lc._verify_candidate(
+                convert.map_state_from_numpy(arrays, dev), 2, 0,
+                lambda m: horn.draw_sim3_samples(m, 128, torch.Generator().manual_seed(5)),
+                slam.builder.K if dev == "cpu" else _intrinsics_on(slam.builder.K, dev),
+                sf.to(dev), ls2.to(dev))
+
+    ref = run("cpu")
+    run(device)  # the first call loads the kernels
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    profiling.take()
+    profiling.enable()
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            got = run(device)
+            torch.cuda.synchronize()
+    finally:
+        profiling.disable()
+    taken = profiling.take()
+    n_brute = ref[0].tolist()[0]
+    assert 0 < n_brute < 20 and ref[0].tolist() == [n_brute, 0, 0, 0]
+    assert got[0].tolist() == ref[0].tolist()
+    spans = taken["spans"]
+    assert [s.name for s in spans] == ["loop.verify", "loop.verify.brute"]
+    assert (spans[0].k1, spans[0].k2) == (1, 0)
+    assert taken["counters"] == {"loop.verify.cut": 1}
+    launches = program_trace.summarize_profile(prof)["launches"]
+    past = [t for t in launches if t >= spans[1].end_ns]
+    assert launches and len(past) <= 40, (len(launches), len(past))
+
+
 def _intrinsics_on(K, device):
     return type(K)(*(x.to(device) for x in K))
 

@@ -4,8 +4,9 @@ the same maps:
 * a map of the 320x240 dolly (18 frames, mapping and loop closing on,
   built by the port) saved in the reference's `.npz` layout with its BoW
   database and loaded through both packages' `load_map`: the fused Sim3
-  verification `_verify_candidate` with the reference's RANSAC draw, the
-  correction's device stages (`_propagate_neighborhood`,
+  verification `_verify_candidate` with the reference's RANSAC draw (and
+  on candidates thinned below 20 brute matches, which the port cuts after
+  the match), the correction's device stages (`_propagate_neighborhood`,
   `build_essential_edges`, `_fuse_and_rebuild`), and `Tracker.relocalize`
   with the reference's EPnP draw;
 * `tests/test_loop_solvers.py::TestCorrectLoopEndToEnd`'s drifted ring,
@@ -27,7 +28,7 @@ from orbslam2_tpu.pipeline import loop_closing as jlc
 from orbslam2_tpu.pipeline.system import System as JSystem
 from orbslam2_tpu.pipeline.tracking import TrackState as JTrackState
 from orbslam2_tpu.slam_map import map_state as jms
-from orbslam2_tpu_torch import convert
+from orbslam2_tpu_torch import convert, profiling
 from orbslam2_tpu_torch.geometry import sim3 as tsim3
 from orbslam2_tpu_torch.pipeline import loop_closing as tlc
 from orbslam2_tpu_torch.pipeline.system import System as TSystem
@@ -148,6 +149,77 @@ def test_verify_candidate_matches_reference(loaded, cand):
     np.testing.assert_allclose(out_t[1].numpy(), np.asarray(out_j[1]), atol=1e-4)
     for a, b in zip(out_j[2:], out_t[2:]):
         np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+
+
+def _thinned(ref, cand, keep=10):
+    """The loaded map with all but `keep` of keyframe `cand`'s points
+    invalid: the reference's copy and the port's, the same numbers."""
+    pids = np.asarray(ref.map.kf_point_idx[cand])
+    pids = pids[pids >= 0]
+    valid = np.asarray(ref.map.mp_valid).copy()
+    valid[pids[keep:]] = False
+    jstate = ref.map._replace(mp_valid=jnp.asarray(valid))
+    return jstate, port_map(jstate)
+
+
+@pytest.mark.parametrize("cand", [0, 1])
+def test_verify_candidate_cut_matches_reference(loaded, cand):
+    """A candidate with fewer than 20 brute matches, keyframe 2 against a
+    thinned keyframe 0 or 1: the port reads the reference's n_brute and
+    its rejection, draws once with the brute match mask, runs nothing of
+    the chain past `loop.verify.brute` and counts one `loop.verify.cut`;
+    its other outputs keep the reference's shapes."""
+    _, _, tport, ref, _ = loaded
+    kf = 2
+    jstate, tstate = _thinned(ref, cand)
+    key = jax.random.PRNGKey(11 + cand)
+    out_j = jlc._verify_candidate(jstate, jnp.int32(kf), jnp.int32(cand), key, ref.builder.K,
+                                  jnp.asarray(SF), jnp.asarray(LEVEL_SIGMA2), ransac_iters=128,
+                                  min_inliers=20, fix_scale=True, covis_threshold=15,
+                                  num_levels=NL)
+    n_brute, _, _, ok = np.asarray(out_j[0]).tolist()
+    assert 0 < n_brute < 20 and ok == 0
+    masks = []
+
+    def draw(m):
+        masks.append(m.clone())
+        return ref_sim3_samples(key, m)
+
+    profiling.take()
+    profiling.enable()
+    try:
+        out_t = tport.loop_closer._run_verify(tstate, kf, cand, draw=draw)
+    finally:
+        profiling.disable()
+    taken = profiling.take()
+    assert out_t[0].tolist() == [n_brute, 0, 0, 0]
+    assert len(masks) == 1 and int(masks[0].sum()) == n_brute
+    assert [s.name for s in taken["spans"]] == ["loop.verify", "loop.verify.brute"]
+    assert taken["counters"] == {"loop.verify.cut": 1}
+    for a, b in zip(out_j[1:], out_t[1:]):
+        assert tuple(b.shape) == np.asarray(a).shape
+
+
+def test_cut_candidate_advances_the_draws_as_a_whole_chain(loaded):
+    """The loop closer's generator after a candidate cut at the brute
+    match is where it is after a candidate that ran the whole chain: one
+    [sim3_ransac_iters, 3] float64 draw further."""
+    _, _, tport, ref, _ = loaded
+    lc = tport.loop_closer
+    start = lc.generator.get_state()
+    _, thinned = _thinned(ref, 0)
+    try:
+        assert lc._run_verify(thinned, 2, 0)[0].tolist()[0] < 20
+        after_cut = lc.generator.get_state()
+        lc.generator.set_state(start)
+        assert lc._run_verify(tport.map, 2, 0)[0].tolist()[0] >= 20
+        after_chain = lc.generator.get_state()
+        lc.generator.set_state(start)
+        torch.rand((CFG.solver.sim3_ransac_iters, 3), generator=lc.generator, dtype=torch.float64)
+        assert torch.equal(after_cut, after_chain)
+        assert torch.equal(after_cut, lc.generator.get_state())
+    finally:
+        lc.generator.set_state(start)
 
 
 def test_correction_stages_match_reference(loaded):
