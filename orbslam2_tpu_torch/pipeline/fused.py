@@ -568,6 +568,7 @@ class FrameStepOut(NamedTuple):
     cull_red: torch.Tensor             # [K] their redundancy fractions
     accept: bool                       # ok AND >= min_inliers_local
     n_inliers: int
+    local_ref: int                     # without mapping: the next reference keyframe, else -1
     next_Tcw: torch.Tensor             # [4, 4]
     next_point_idx: torch.Tensor       # [S]
     next_velocity: torch.Tensor        # [4, 4]
@@ -669,12 +670,16 @@ def frame_and_keyframe_step(
         accept & (c2 | c1) & (out.n_inliers > 15)
         & torch.any(~state.kf_valid) & mapping_enabled
     )
-    # float64 holds the counts and the float32 pose exactly
-    flags = torch.stack([accept, out.n_inliers, need_kf, out.ok]).to(torch.float64)
+    # where no keyframe can take over (a frozen map), the next reference
+    # keyframe comes from the frame's tracked points
+    ref_next = [] if mapping_enabled else [trk.reference_keyframe(state, out.point_idx, ref_kf)]
+    # float64 holds the counts, the keyframe id and the float32 pose exactly
+    flags = torch.stack([accept, out.n_inliers, need_kf, out.ok, *ref_next]).to(torch.float64)
     with profiling.span("session.decision_read"):
         host = torch.cat([flags, out.Tcw.reshape(-1).to(torch.float64)]).tolist()
     accept, n_inl, is_kf, ok = bool(host[0]), int(host[1]), bool(host[2]), bool(host[3])
-    pose = np.asarray(host[4:], np.float32).reshape(4, 4)
+    local_ref = int(host[4]) if ref_next else -1
+    pose = np.asarray(host[4 + len(ref_next):], np.float32).reshape(4, 4)
 
     S = frame.xy.shape[0]
     if is_kf:
@@ -711,6 +716,7 @@ def frame_and_keyframe_step(
         cull_red=cull_red,
         accept=accept,
         n_inliers=n_inl,
+        local_ref=local_ref,
         next_Tcw=kf_Tcw,
         next_point_idx=kf_bind,
         next_velocity=out.Tcw @ se3.inverse(last_Tcw),

@@ -19,8 +19,11 @@ LoopClosing threads, and each dispatch chains off the previous dispatch's
 anchors. (The step still decides on one host read; only the resolve is
 deferred.) With `cfg.tracking.defer_local_ba` the keyframe step skips
 local BA and the resolve of the keyframe runs it. In localization mode the
-map is frozen: no keyframe is made and no reset wipes the map; an RGB-D
-frame that loses the map but still tracks coarsely hands over to
+map is frozen: no keyframe is made and no reset wipes the map; each
+accepted frame hands the reference to the keyframe that observes most of
+its tracked points once the reference observes fewer than half as many
+(ORB-SLAM2's UpdateLocalKeyFrames), and an
+RGB-D frame that loses the map but still tracks coarsely hands over to
 frame-to-frame visual odometry (mbVO) until a relocalization succeeds.
 Without a vocabulary file the session trains its own at its first mapped
 keyframe and retrains it as the map grows, as the reference.
@@ -150,6 +153,8 @@ class System:
         self._anchor = None
         # bumped whenever the map is replaced (reset, load_map)
         self._map_epoch = 0
+        # (map epoch, keyframe poses) of the frozen map in localization mode
+        self._frozen_poses = (None, None)
 
     def _as_tensor(self, x) -> torch.Tensor:
         return torch.as_tensor(x, dtype=torch.float32, device=self.device)
@@ -198,6 +203,8 @@ class System:
             a = self._as_tensor(a)
             b = None if b is None else self._as_tensor(b)
             t = self.tracker
+            if self.localization_only:
+                profiling.count("localization.frames")
             if (sensor == Sensor.RGBD and self.localization_only and t.last_frame is not None
                     and (t.mb_vo or t.state == TrackState.LOST)):
                 return self._track_localization_vo(self._build_frame(a, b, timestamp))
@@ -300,7 +307,8 @@ class System:
         t.last_frame = frame
         t.last_point_idx = res.next_point_idx
         t.last_Tcw = res.next_Tcw
-        self._anchor = (res.next_velocity, res.accept, res.next_ref_kf, res.next_frames_since_kf)
+        self._anchor = (res.next_velocity, res.accept, self._next_ref_kf(res),
+                        res.next_frames_since_kf)
         kf_out, landed = [], None
         if res.is_kf:
             kf_out, landed = _start_host_copies(
@@ -308,6 +316,30 @@ class System:
                 self.device)
         return _TurboRec(res, frame, (a, b, timestamp), prev_anchors, self._map_epoch, window,
                          kf_out, landed)
+
+    def _next_ref_kf(self, res) -> int:
+        """The reference keyframe of the frame after `res`: the step's. In
+        localization mode, where no new keyframe ever takes over, an
+        accepted frame hands the reference to the keyframe that observes
+        most of its tracked points once the reference observes fewer than
+        half as many, as ORB-SLAM2's UpdateLocalKeyFrames makes that
+        keyframe the reference every frame. A reference keyframe left
+        behind still holds a few matches far ahead, and the local map
+        gathered from them loses the camera within ~2 m; votes of the
+        coarse stage's matches, which are the reference keyframe's own,
+        keep it as long as it matches at all, and the pose jumps where the
+        motion model then takes over."""
+        if self.localization_only and res.accept and res.local_ref >= 0:
+            return res.local_ref
+        return res.next_ref_kf
+
+    def _frozen_kf_Tcw(self) -> np.ndarray:
+        """The keyframe poses of the frozen map on the host: copied when
+        localization mode starts, and again only if the map is replaced
+        (no keyframe moves while the mode lasts)."""
+        if self._frozen_poses[0] != self._map_epoch:
+            self._frozen_poses = (self._map_epoch, self.map.kf_Tcw.cpu().numpy().copy())
+        return self._frozen_poses[1]
 
     def _turbo_resolve(self, rec: _TurboRec) -> Optional[str]:
         """Host bookkeeping for a dispatched frame. First the loop closer
@@ -333,6 +365,7 @@ class System:
                     # the frozen map no longer holds the frame, but coarse
                     # tracking does: visual odometry takes over, not LOST
                     t.mb_vo = True
+                    profiling.count("localization.vo")
                     t.state = TrackState.OK
                     t.velocity = res.next_velocity
                     t.last_inliers = n_inl
@@ -360,6 +393,9 @@ class System:
             t.state = TrackState.OK
             # the motion model survives keyframes (ORB-SLAM2 updates it every frame)
             t.velocity = res.next_velocity
+            ref_kf = self._next_ref_kf(res)
+            if self.localization_only and 0 <= ref_kf != t.ref_kf:
+                t.ref_kf, t._ref_pose_np = ref_kf, self._frozen_kf_Tcw()[ref_kf]
             info = dict(frame_id=int(frame.frame_id), t=float(frame.timestamp), state="OK",
                         n_inliers=n_inl, is_kf=res.is_kf)
             if res.is_kf:
@@ -731,6 +767,8 @@ class System:
         """Freeze the map: tracking only, no keyframes, no auto-reset."""
         self.flush()
         self.localization_only = True
+        self._frozen_poses = (None, None)
+        self._frozen_kf_Tcw()
 
     def deactivate_localization_mode(self):
         self.flush()

@@ -122,6 +122,32 @@ def _top_k(values: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+def _kf_votes(state: ms.MapState, cur_point_idx) -> torch.Tensor:
+    """[K] how many of the bound points each valid keyframe observes."""
+    P = state.capacity_mp
+    K = state.capacity_kf
+    pid = _i64(torch.clamp(cur_point_idx, 0, P - 1))
+    bound = (cur_point_idx >= 0) & state.mp_valid[pid]
+    obs_kf = state.mp_obs_kf[pid]                     # [S, O]
+    obs_ok = bound[:, None] & (obs_kf >= 0)
+    votes = torch.zeros(K + 1, dtype=torch.int32, device=cur_point_idx.device).index_add(
+        0, _i64(torch.where(obs_ok, obs_kf, K)).reshape(-1),
+        torch.ones(obs_kf.numel(), dtype=torch.int32, device=cur_point_idx.device),
+    )[:K]
+    return torch.where(state.kf_valid, votes, 0)
+
+
+def reference_keyframe(state: ms.MapState, cur_point_idx, ref_kf: int) -> torch.Tensor:
+    """The reference keyframe after a frame that bound `cur_point_idx`:
+    `ref_kf` while it observes at least half as many of the bound points as
+    the keyframe that observes most of them (ORB-SLAM2's pKFmax, lowest id
+    on ties), else that keyframe; -1 when none is bound."""
+    votes = _kf_votes(state, cur_point_idx)
+    best = torch.argmax(votes).to(torch.int32)
+    ref = torch.where(2 * votes[ref_kf] >= votes[best], ref_kf, best)
+    return torch.where(torch.any(cur_point_idx >= 0), ref, -1)
+
+
 def gather_local_map(
     state: ms.MapState,
     cur_point_idx,
@@ -139,15 +165,7 @@ def gather_local_map(
     K = state.capacity_kf
     dev = cur_point_idx.device
     max_local_kfs = min(max_local_kfs, K)
-    pid = _i64(torch.clamp(cur_point_idx, 0, P - 1))
-    bound = (cur_point_idx >= 0) & state.mp_valid[pid]
-    obs_kf = state.mp_obs_kf[pid]                     # [S, O]
-    obs_ok = bound[:, None] & (obs_kf >= 0)
-    votes = torch.zeros(K + 1, dtype=torch.int32, device=dev).index_add(
-        0, _i64(torch.where(obs_ok, obs_kf, K)).reshape(-1),
-        torch.ones(obs_kf.numel(), dtype=torch.int32, device=dev),
-    )[:K]
-    votes = torch.where(state.kf_valid, votes, 0)
+    votes = _kf_votes(state, cur_point_idx)
     ref_kf = torch.argmax(votes).to(torch.int32)
     covis_boost = torch.amax(state.covis * (votes > 0)[:, None].to(torch.int32), dim=0)
     score = votes * 1000 + torch.where(votes > 0, 0, covis_boost)
@@ -449,6 +467,7 @@ class Tracker:
 
     # -- localization-mode dual hypothesis (ORB-SLAM2 mbVO) ----------------
 
+    @profiling.spanned("tracking.localization_vo")
     def localization_vo_step(self, frame: FrameData, reloc_db) -> TrackResult:
         """Localization-mode tracking once the frozen map is out of view
         (ORB-SLAM2 Tracking::Track, mbVO): relocalization against the map
@@ -458,12 +477,14 @@ class Tracker:
         temporary points). Nothing is written to the map."""
         if self.relocalize(frame, reloc_db):
             self.mb_vo = False
+            profiling.count("localization.reloc_won")
             Tcw_np = self.last_Tcw.cpu().numpy()
             self._log_pose(frame, True, Tcw_np)
             self.last_inliers = max(self.last_inliers, 50)
             return TrackResult(Tcw_np, self.state, self.last_inliers, False)
 
         self.mb_vo = True
+        profiling.count("localization.vo")
         Tcw_pred, r = self.visual_odometry(frame, self.last_frame, self.last_Tcw, self.velocity)
         n_inl = _host(r.num_inliers)
         ok = n_inl >= self.cfg.tracking.min_inliers_track
@@ -478,6 +499,7 @@ class Tracker:
         self._log_pose(frame, ok, Tcw_np)
         return TrackResult(Tcw_np, self.state, n_inl, False)
 
+    @profiling.spanned("tracking.vo")
     def visual_odometry(self, frame: FrameData, last_frame: FrameData, last_Tcw: torch.Tensor,
                         velocity: Optional[torch.Tensor]):
         """One step of the frame-to-frame visual odometry from the given

@@ -13,7 +13,11 @@ readers in `slambench/metrics/`) on a hand-built trace:
 * under a CPU `torch.profiler` each span and its `orbslam2.*` range agree
   at both ends within 0.1 ms;
 * with the tracer on, the benchmark's own rebinding (`Recorder.install`)
-  still records every one of its spans.
+  still records every one of its spans;
+* in localization mode, a frame on the odometry path is one
+  `tracking.localization_vo` span holding the relocalization attempt and
+  the odometry step (`tracking.vo`), and the `localization.*` counters
+  count the frames.
 
 The sessions are the mapping slice's 320x240 dolly with a keyframe at
 least every second frame, so that a few frames reach the keyframe step.
@@ -143,6 +147,35 @@ def stereo():
     return slam, profiling.take()
 
 
+@pytest.fixture(scope="module")
+def localizing():
+    """Frames 0-2 mapped (no loop closer, so relocalization has no
+    database and fails), localization mode, then with the tracer on frame
+    3 on the fused step and frame 4 on the odometry path (mbVO set by
+    hand)."""
+    cfg = _cfg(Sensor.RGBD)
+    seq = synthetic.textured_sequence(n_frames=5, kind="forward", cam=cfg.camera)
+    slam = System(cfg, device="cpu", enable_loop_closing=False)
+
+    def hand(i):
+        img, depth = seq.frame(i)
+        slam.track_rgbd(img, depth, timestamp=i / 30.0)
+
+    for i in range(3):
+        hand(i)
+    slam.activate_localization_mode()
+    n_kf = slam.num_keyframes()
+    profiling.take()
+    profiling.enable()
+    try:
+        hand(3)
+        slam.tracker.mb_vo = True
+        hand(4)
+    finally:
+        profiling.disable()
+    return slam, profiling.take(), n_kf
+
+
 def _children(spans, i) -> list:
     return [s for s in spans if s.parent == i]
 
@@ -160,7 +193,7 @@ def _assert_frame_trees(slam, spans, extracts: int):
         assert root.frame_id in logged
         names = [c.name for c in _children(spans, i)]
         assert names.count("frame.build") == 1, names
-        assert "tracking.step" in names or "tracking.slow" in names, names
+        assert {"tracking.step", "tracking.slow", "tracking.localization_vo"} & set(names), names
         build = next(j for j, s in enumerate(spans) if s.parent == i and s.name == "frame.build")
         assert [c.name for c in _children(spans, build)].count("frame.build.extract") == extracts
     for s in spans:
@@ -207,6 +240,23 @@ def test_stereo_frames_are_span_trees(stereo):
     assert "frame.build.stereo_match" in {s.name for s in spans}
     _assert_keyframe_step(spans)
     assert profiling.take() == {"spans": [], "counters": {}}
+
+
+def test_localization_frames_are_span_trees(localizing):
+    slam, taken, n_kf = localizing
+    spans = taken["spans"]
+    _assert_frame_trees(slam, spans, extracts=1)
+    assert sorted(s.frame_id for _, s in _frames(spans)) == [3, 4]
+    loc = [i for i, s in enumerate(spans) if s.name == "tracking.localization_vo"]
+    assert len(loc) == 1 and spans[spans[loc[0]].parent].frame_id == 4
+    assert [c.name for c in _children(spans, loc[0])] == ["tracking.relocalize", "tracking.vo"]
+    assert "tracking.step" in {c.name for c in _children(spans, 0)}
+    counters = taken["counters"]
+    assert counters["localization.frames"] == 2
+    logged = [e["state"] for e in slam.log.of("frame") if e["frame_id"] in (3, 4)]
+    assert counters["localization.vo"] == logged.count("VO") >= 1
+    assert "localization.reloc_won" not in counters and "mapping.keyframes" not in counters
+    assert slam.num_keyframes() == n_kf
 
 
 def test_verification_spans_and_counters(rgbd):
